@@ -1,0 +1,95 @@
+"""Command line of the port: ``python -m sinddm_tpu_torch.cli --mode sample``.
+
+Takes the sample-path flags of ``sinddm_tpu.cli`` with the same defaults,
+plus ``--load_checkpoint`` (an ``.npz`` of the JAX package's denoiser
+parameters, ``/``-joined keys; without it the weights are random from
+``--seed``) and ``--device`` (default ``cuda``). Writes the same
+``final_samples/`` files as the JAX CLI. The other modes arrive with
+their slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+from pathlib import Path
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("sinddm_tpu_torch")
+    p.add_argument("--mode", required=True, choices=["sample"])
+    p.add_argument("--scope", default="forest", help="run name under --results_folder")
+    p.add_argument("--dataset_folder", default="./datasets/forest/")
+    p.add_argument("--image_name", default="forest.jpeg")
+    p.add_argument("--results_folder", default="./results/")
+    p.add_argument("--dim", default=160, type=int)
+    p.add_argument("--timesteps", default=100, type=int)
+    p.add_argument("--scale_factor", default=1.411, type=float)
+    p.add_argument("--sample_batch_size", default=16, type=int)
+    p.add_argument("--scale_mul", nargs="+", default=[1, 1], type=float)
+    p.add_argument("--sample_t_list", nargs="+", type=int)
+    p.add_argument("--sample_limited_t", action="store_true")
+    p.add_argument("--omega", default=0, type=float)
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--load_checkpoint", default=None,
+                   help=".npz of the denoiser's parameters in the JAX package's "
+                        "layout, '/'-joined keys (e.g. l3/net_conv1/kernel)")
+    p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    run(args)
+
+
+def run(args) -> list:
+    import torch
+
+    from sinddm_tpu_torch.apps.sampling import sample_scales
+    from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
+    from sinddm_tpu_torch.ops.image_io import save_image
+    from sinddm_tpu_torch.pyramid import build_pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+
+    device = torch.device(args.device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.compute_dtype]
+    results_folder = Path(args.results_folder) / args.scope
+    pyramid = build_pyramid(
+        os.path.join(args.dataset_folder, args.image_name),
+        scale_factor=args.scale_factor,
+        auto_scale=50000,
+        save_to=args.dataset_folder if os.access(args.dataset_folder, os.W_OK) else None,
+    )
+    sched = make_schedules(
+        timesteps=args.timesteps, scale_losses=pyramid.rescale_losses,
+        n_scales=pyramid.n_scales, device=device,
+    )
+    tree = args.load_checkpoint or random_flax_params(dim=args.dim, seed=args.seed)
+    model = denoiser_from_flax(tree, compute_dtype=dtype, device=device)
+    generator = torch.Generator(device=device).manual_seed(args.seed + 777)
+
+    outs = sample_scales(
+        model, sched, pyramid.sizes_hw,
+        scale_factor=pyramid.scale_factor, n_scales=pyramid.n_scales,
+        batch_size=args.sample_batch_size,
+        scale_mul=(args.scale_mul[0], args.scale_mul[1]),
+        custom_t_list=args.sample_t_list, sample_limited_t=args.sample_limited_t,
+        omega=args.omega, custom_sample=True, generator=generator, device=device,
+    )
+    desc = "sample"
+    stamp = str(datetime.datetime.now()).replace(":", "_").replace(" ", "_")
+    for i, out in enumerate(outs):
+        save_image((out + 1) * 0.5, results_folder / "final_samples" / f"out_s{i}_{desc}_{stamp}.png")
+    unb = results_folder / f"final_samples_unbatched_{desc}_{stamp}"
+    fin01 = (outs[-1] + 1) * 0.5
+    for b in range(fin01.shape[0]):
+        save_image(fin01[b], unb / f"out_b{b}.png")
+    print(f"saved {len(outs)} scales to {results_folder / 'final_samples'}")
+    return outs
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; every test skips where there is no CUDA device. On a
+machine with one (no JAX needed, hence ``--noconftest``):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+
+The shapes here are small and ragged on purpose (W and H of 1, channel
+counts that are not multiples of the kernels' chunks and tiles); the full
+dim=160 shapes of the sampling path are checked by ``chip_smoke.py``.
+Tolerances as there: fp32 atol 2e-4 + rtol 2e-4 (sum order); bf16 max
+error <= 2e-2 of max |plain|; dw against float64 atol 1e-5.
+"""
+
+import pytest
+import torch
+
+from sinddm_tpu_torch.ops import conv_block as cb
+from sinddm_tpu_torch.ops import dw_conv as dw
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _block(gen, b, h, w, c, co, dtype):
+    def n(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    proj = c != co
+    return (
+        n(b, h, w, c).to(dtype), n(b, c, scale=0.2), n(5, 5, c, scale=0.2), n(c, scale=0.1),
+        n(3, 3, c, co, scale=(9 * c) ** -0.5), n(co, scale=0.1),
+        n(3, 3, co, co, scale=(9 * co) ** -0.5), n(co, scale=0.1),
+        n(c, co, scale=c ** -0.5) if proj else None, n(co, scale=0.1) if proj else None,
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c,co",
+    [(1, 1, 1, 3, 80), (2, 7, 9, 8, 16), (1, 19, 21, 160, 160), (3, 8, 16, 80, 160),
+     (1, 5, 33, 12, 24), (2, 17, 3, 16, 8), (1, 9, 250, 160, 80)],
+)
+def test_conv_block_matches_plain(gen, b, h, w, c, co, dtype):
+    args = _block(gen, b, h, w, c, co, dtype)
+    cb.launches = dw.launches = 0
+    out = cb.conv_block(*args)
+    assert (cb.launches, dw.launches) == (cb.LAUNCHES_PER_BLOCK, 1)
+    ref = cb.conv_block_reference(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, w, co) and out.dtype == dtype and out.is_cuda
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-4, rtol=2e-4)
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 3), (2, 19, 21, 8), (1, 6, 130, 160), (3, 2, 5, 80)])
+@pytest.mark.parametrize("with_vec", [False, True])
+def test_dw_matches_float64(gen, shape, with_vec):
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda")
+    wdw = torch.randn((5, 5, c), generator=gen, device="cuda") * 0.2
+    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    vec = torch.randn((shape[0], c), generator=gen, device="cuda") * 0.2 if with_vec else None
+    dw.launches = 0
+    out = dw.depthwise_conv5x5(x, wdw, bias, vec)
+    assert dw.launches == 1
+    ref = dw.depthwise_conv5x5_reference(
+        x.double(), wdw.double(), bias.double(), None if vec is None else vec.double())
+    torch.testing.assert_close(out.double(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_dw_vector_and_scalar_paths_agree(gen, dtype):
+    """C % 4 == 0 with aligned pointers takes the vector kernel; the same
+    input 4 bytes off alignment takes the scalar one. Same sums, same order."""
+    shape = (2, 11, 37, 80)
+    buf = torch.randn(1 + torch.Size(shape).numel(), generator=gen, device="cuda").to(dtype)
+    aligned = buf[:-1].view(shape)
+    shifted = buf[1:].view(shape)
+    assert shifted.data_ptr() % 16 != 0
+    wdw = (torch.randn((5, 5, 80), generator=gen, device="cuda") * 0.2).to(dtype)
+    bias = (torch.randn((80,), generator=gen, device="cuda") * 0.1).to(dtype)
+    vec = (torch.randn((2, 80), generator=gen, device="cuda") * 0.2).to(dtype)
+    shifted_copy = shifted.clone()  # aligned storage, same values
+    torch.testing.assert_close(dw.depthwise_conv5x5(shifted, wdw, bias, vec),
+                               dw.depthwise_conv5x5(shifted_copy, wdw, bias, vec), atol=0, rtol=0)
+    ref = dw.depthwise_conv5x5_reference(aligned, wdw, bias, vec)
+    err = (dw.depthwise_conv5x5(aligned, wdw, bias, vec).float() - ref.float()).abs().max().item()
+    assert err <= (1e-5 if dtype == torch.float32 else 2e-2 * ref.float().abs().max().item())
+
+
+def test_wrappers_raise_instead_of_falling_back(gen):
+    args = list(_block(gen, 1, 6, 6, 8, 16, torch.float32))
+    cb.launches = dw.launches = 0
+    with pytest.raises(TypeError):
+        cb.conv_block(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):  # a non-contiguous input
+        cb.conv_block(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError):  # weights on another device
+        cb.conv_block(args[0], args[1], args[2].cpu(), *args[3:])
+    with pytest.raises(TypeError):
+        dw.depthwise_conv5x5(args[0].double(), args[2].double(), args[3].double())
+    with pytest.raises(ValueError):  # dw weights must have x's type
+        dw.depthwise_conv5x5(args[0], args[2].bfloat16(), args[3])
+    assert (cb.launches, dw.launches) == (0, 0)
