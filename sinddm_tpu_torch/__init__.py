@@ -1,4 +1,4 @@
-"""sinddm_tpu_torch — the SinDDM sampler in PyTorch, with CUDA kernels for Hopper.
+"""sinddm_tpu_torch — SinDDM sampling and CLIP-guided sampling in PyTorch, with CUDA kernels for Hopper.
 
 A port of the JAX package ``sinddm_tpu`` (which stays the reference).
 Module names mirror the JAX package's, so each counterpart is easy to

@@ -6,13 +6,14 @@ way and denoises it with the reblurring sampler.
 
 The JAX ``sample_scales`` options ``precompile`` (warming JAX's per-scale
 compile cache) and ``sharding`` (a device mesh) have no counterpart here:
-PyTorch runs eagerly, and this port targets one card. Guidance hooks
-arrive with the guided slice.
+PyTorch runs eagerly, and this port targets one card. Nor has
+``guidance_params``, which keeps the CLIP tower out of the compiled
+program's constants: here the guidance hook simply holds its tower.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +74,8 @@ def sample_scales(
     reblurring: bool = True,
     sample_limited_t: bool = False,
     omega: float = 0.0,
+    guidance_factory: Optional[Callable[[int, Tuple[int, int]], Tuple[Any, Any]]] = None,
+    carry_transform: Optional[Callable[[int, Any, Tuple[int, int]], Any]] = None,
     collect_aux: Optional[List[Any]] = None,
     collect_interm: bool = False,
     generator: Optional[torch.Generator] = None,
@@ -87,6 +90,13 @@ def sample_scales(
     intermediate state of each scale into its ``collect_aux`` entry under
     ``"interm"``. Noise comes from ``noise_fn`` when given, else from
     ``generator`` on ``device``.
+
+    ``guidance_factory(s, size_hw) -> (guidance_fn, init_carry)`` builds the
+    guidance hook of a scale (CLIP) from the scale and its size alone; state
+    flows through the carry, which ``carry_transform(s, carry, size_hw)``
+    resizes on the way into each finer scale. A scale whose hook is None
+    passes the carry on untouched. Each scale's ``collect_aux`` entry then
+    also holds the hook's aux, stacked over the steps (``"clip_score"``).
     """
     if custom_t_list is None:
         custom_t_list = list(sched.num_timesteps_ideal[1:])
@@ -102,17 +112,27 @@ def sample_scales(
             return sched.num_timesteps_ideal[s + 1]
         return 0
 
+    def hook(s: int, carry: Any, size_hw: Tuple[int, int]):
+        """This scale's guidance hook, and the carry it starts from."""
+        if guidance_factory is None:
+            return None, carry
+        fn, init_carry = guidance_factory(s, size_hw)
+        return fn, (carry if carry is not None else init_carry)
+
     outputs: List[torch.Tensor] = []
+    gcarry: Any = None
     with torch.no_grad():
         for i, s in enumerate(int(v) for v in custom_scales):
             aux = None
             if i == 0 and start_noise:
                 size0 = sizes_hw[custom_image_size_idxs[0]]
                 hw = (int(size0[0] * scale_mul[0]), int(size0[1] * scale_mul[1]))
-                x, aux = sample_scale0(
+                gfn, gcarry = hook(s, gcarry, hw)
+                x, gcarry, aux = sample_scale0(
                     model_fn, sched, (batch_size, hw[0], hw[1], 3), s=s,
                     t_min=t_min_of(s), omega=omega, noise_fn=noise_fn,
-                    device=device, collect_interm=collect_interm,
+                    device=device, guidance_fn=gfn, guidance_carry=gcarry,
+                    collect_interm=collect_interm,
                 )
             elif i == 0:
                 if start_image is None:
@@ -125,10 +145,14 @@ def sample_scales(
                     scale_mul=scale_mul, custom_sample=custom_sample,
                     custom_img_size_idx=int(custom_image_size_idxs[i]),
                 )
-                x, aux = sample_via_scale(
+                if carry_transform is not None and gcarry is not None:
+                    gcarry = carry_transform(s, gcarry, size_hw)
+                gfn, gcarry = hook(s, gcarry, size_hw)
+                x, gcarry, aux = sample_via_scale(
                     model_fn, sched, resize_bilinear(outputs[-1], size_hw), s=s,
                     total_t=int(custom_t_list[s - 1]), t_min=t_min_of(s),
                     reblurring=reblurring, omega=omega, noise_fn=noise_fn,
+                    guidance_fn=gfn, guidance_carry=gcarry,
                     collect_interm=collect_interm,
                 )
             if collect_aux is not None:

@@ -1,11 +1,14 @@
-"""Command line of the port: ``python -m sinddm_tpu_torch.cli --mode sample``.
+"""Command line of the port: ``python -m sinddm_tpu_torch.cli --mode sample``
+and the CLIP-guided modes ``clip_content``, ``clip_style_gen``,
+``clip_style_trans``.
 
-Takes the sample-path flags of ``sinddm_tpu.cli`` with the same defaults,
-plus ``--load_checkpoint`` (an ``.npz`` of the JAX package's denoiser
-parameters, ``/``-joined keys; without it the weights are random from
-``--seed``) and ``--device`` (default ``cuda``). Writes the same
-``final_samples/`` files as the JAX CLI. The other modes arrive with
-their slices.
+Takes the flags of ``sinddm_tpu.cli`` for these modes with the same
+defaults, plus ``--load_checkpoint`` (an ``.npz`` of the JAX package's
+denoiser parameters, ``/``-joined keys; without it the weights are random
+from ``--seed``) and ``--device`` (default ``cuda``). Writes the same
+``final_samples/`` files as the JAX CLI. A CLIP mode needs a ViT-B/32
+checkpoint (``--clip_weights`` or one of the sniffed paths) and stops
+without one. The other modes arrive with their slices.
 """
 
 from __future__ import annotations
@@ -16,9 +19,19 @@ import os
 from pathlib import Path
 
 
+CLIP_MODES = ("clip_content", "clip_style_gen", "clip_style_trans")
+
+
+def _positive_int(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("sinddm_tpu_torch")
-    p.add_argument("--mode", required=True, choices=["sample"])
+    p.add_argument("--mode", required=True, choices=["sample", *CLIP_MODES])
     p.add_argument("--scope", default="forest", help="run name under --results_folder")
     p.add_argument("--dataset_folder", default="./datasets/forest/")
     p.add_argument("--image_name", default="forest.jpeg")
@@ -37,6 +50,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npz of the denoiser's parameters in the JAX package's "
                         "layout, '/'-joined keys (e.g. l3/net_conv1/kernel)")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    # clip
+    p.add_argument("--clip_text", default="Fire in the Forest")
+    p.add_argument("--fill_factor", type=float)
+    p.add_argument("--strength", type=float)
+    p.add_argument("--clip_weights", default=None,
+                   help="path to CLIP ViT-B/32 weights (OpenAI .pt archive or a state dict)")
+    p.add_argument("--n_aug", type=_positive_int, default=16,
+                   help="augmented CLIP views per guided image")
+    p.add_argument("--clip_view_chunk", type=int, default=8,
+                   help="guidance views encoded and differentiated per sequential "
+                        "chunk (0 = all at once)")
+    p.add_argument("--warp_impl", default=None,
+                   choices=["mm", "pallas", "pallas_win", "pallas_winx", "pallas_winb"],
+                   help="guidance view-warp executor (default: the 'pallas_winx' CUDA "
+                        "kernel on a CUDA device, the matrix-product version on the "
+                        "CPU). 'mm' forces the matrix-product version; 'pallas_win' / "
+                        "'pallas_winb' are the other kernels of "
+                        "sinddm_tpu_torch/csrc/warp_sample.cu; 'pallas' is not ported yet")
     return p
 
 
@@ -70,6 +101,14 @@ def run(args) -> list:
     tree = args.load_checkpoint or random_flax_params(dim=args.dim, seed=args.seed)
     model = denoiser_from_flax(tree, compute_dtype=dtype, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed + 777)
+
+    if args.mode in CLIP_MODES:
+        from sinddm_tpu_torch.apps.clip_apps import run_clip_mode
+
+        return run_clip_mode(
+            args, model, sched, pyramid, generator, args.sample_t_list,
+            (args.scale_mul[0], args.scale_mul[1]), results_folder, device,
+        )
 
     outs = sample_scales(
         model, sched, pyramid.sizes_hw,

@@ -8,13 +8,17 @@ draws happen in the JAX package's order (the initial draw of a scale,
 then one per reverse step, t = 0 included), so a test can feed both the
 same numbers and compare them step for step.
 
-Shapes are NHWC. ``s`` (the scale index) is a Python int. The training
-losses and the guidance hook arrive with their slices.
+Shapes are NHWC. ``s`` (the scale index) and the step's ``t`` are Python
+ints. A guidance hook ``guidance_fn(x_recon, x_t, t, s, carry) -> (x_recon,
+carry, aux)`` edits the predicted clean image of each step (CLIP guidance);
+its carry is threaded through the loop and its aux collected per step. The
+hook draws its own random numbers (the JAX package hands it a key). The
+training losses arrive with their slice.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +28,8 @@ from sinddm_tpu_torch.schedules import Schedules
 ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 # noise_fn(shape) -> standard normal float32 tensor of that shape
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
+# guidance_fn(x_recon, x_t, t, s, carry) -> (x_recon, carry, {name: tensor})
+GuidanceFn = Callable[[torch.Tensor, torch.Tensor, int, int, Any], Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]]
 
 
 def make_noise_fn(generator: Optional[torch.Generator], device) -> NoiseFn:
@@ -128,8 +134,11 @@ def p_sample_step(
     img_prev: Optional[torch.Tensor] = None,
     omega: float = 0.0,
     clip_denoised: bool = True,
-) -> torch.Tensor:
-    """One reverse step x_t -> x_{t-1}; draws one noise tensor."""
+    guidance_fn: Optional[GuidanceFn] = None,
+    guidance_carry: Any = None,
+) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+    """One reverse step x_t -> x_{t-1}; draws one noise tensor. Returns
+    (x_next, guidance_carry, guidance_aux)."""
     b = x.shape[0]
     # t and s as device fills: a host-to-device copy would sync every step
     t_vec = torch.full((b,), int(t), dtype=torch.long, device=x.device)
@@ -141,6 +150,9 @@ def p_sample_step(
         sched, x, t_vec, eps, s=s, reblurring=reblurring,
         img_prev=img_prev, gammas_row=gammas_row,
     )
+    aux: Dict[str, torch.Tensor] = {}
+    if guidance_fn is not None:
+        x_recon, guidance_carry, aux = guidance_fn(x_recon, x, int(t), s, guidance_carry)
     if reblurring and s > 0:
         # re-mix with gamma_{t-1} when t > 0
         g_prev = extract(gammas_row, torch.clamp(t_vec - 1, min=0))
@@ -160,7 +172,7 @@ def p_sample_step(
     )
     noise = noise_fn(tuple(x.shape)).to(device=x.device, dtype=x.dtype)
     nonzero = (t_vec > 0).to(x.dtype)[:, None, None, None]
-    return mean + nonzero * torch.exp(0.5 * logvar) * noise
+    return mean + nonzero * torch.exp(0.5 * logvar) * noise, guidance_carry, aux
 
 
 def _reverse_loop(
@@ -175,21 +187,27 @@ def _reverse_loop(
     reblurring: bool,
     img_prev: Optional[torch.Tensor],
     omega: float,
+    guidance_fn: Optional[GuidanceFn] = None,
+    guidance_carry: Any = None,
     collect_interm: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Run the reverse chain t = t_start-1 .. t_min. With ``collect_interm``
-    the aux dict holds every state under ``"interm"`` ([n_steps, ...], t
-    descending)."""
-    frames = []
+) -> Tuple[torch.Tensor, Any, Optional[Dict[str, torch.Tensor]]]:
+    """Run the reverse chain t = t_start-1 .. t_min. Returns (x,
+    guidance_carry, aux): aux stacks each step's guidance aux ([n_steps, ...],
+    t descending) and, with ``collect_interm``, every state under
+    ``"interm"``; it is None when there is neither (or no step)."""
+    rows: Dict[str, list] = {}
     for t in range(t_start - 1, t_min - 1, -1):
-        x = p_sample_step(
+        x, guidance_carry, step_aux = p_sample_step(
             model_fn, sched, x, t, noise_fn,
             s=s, reblurring=reblurring, img_prev=img_prev, omega=omega,
+            guidance_fn=guidance_fn, guidance_carry=guidance_carry,
         )
         if collect_interm:
-            frames.append(x)
-    aux = {"interm": torch.stack(frames)} if (collect_interm and frames) else None
-    return x, aux
+            step_aux = dict(step_aux, interm=x)
+        for name, value in step_aux.items():
+            rows.setdefault(name, []).append(value)
+    aux = {name: torch.stack(values) for name, values in rows.items()} or None
+    return x, guidance_carry, aux
 
 
 def sample_scale0(
@@ -203,16 +221,19 @@ def sample_scale0(
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
     device="cuda",
+    guidance_fn: Optional[GuidanceFn] = None,
+    guidance_carry: Any = None,
     collect_interm: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+) -> Tuple[torch.Tensor, Any, Optional[Dict[str, torch.Tensor]]]:
     """Sample from pure noise at the coarsest scale; ``shape`` is (B, H, W, C).
-    The chain runs T-1 .. t_min. Returns (x, aux)."""
+    The chain runs T-1 .. t_min. Returns (x, guidance_carry, aux)."""
     if noise_fn is None:
         noise_fn = make_noise_fn(generator, device)
     x = noise_fn(tuple(shape)).to(device=device, dtype=torch.float32)
     return _reverse_loop(
         model_fn, sched, x, noise_fn, sched.num_timesteps, t_min,
         s=s, reblurring=False, img_prev=None, omega=omega,
+        guidance_fn=guidance_fn, guidance_carry=guidance_carry,
         collect_interm=collect_interm,
     )
 
@@ -229,11 +250,14 @@ def sample_via_scale(
     omega: float = 0.0,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
+    guidance_fn: Optional[GuidanceFn] = None,
+    guidance_carry: Any = None,
     collect_interm: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+) -> Tuple[torch.Tensor, Any, Optional[Dict[str, torch.Tensor]]]:
     """Denoise at scale s from the (already resized) previous output:
     forward-noise it to ``total_t`` and reverse-denoise ``total_t-1 .. t_min``,
-    with ``img_prev`` as the reblur anchor. Runs on ``img_prev``'s device."""
+    with ``img_prev`` as the reblur anchor. Runs on ``img_prev``'s device.
+    Returns (x, guidance_carry, aux)."""
     if noise_fn is None:
         noise_fn = make_noise_fn(generator, img_prev.device)
     noise = noise_fn(tuple(img_prev.shape)).to(device=img_prev.device, dtype=img_prev.dtype)
@@ -241,5 +265,6 @@ def sample_via_scale(
     return _reverse_loop(
         model_fn, sched, x, noise_fn, total_t, t_min,
         s=s, reblurring=reblurring, img_prev=img_prev, omega=omega,
+        guidance_fn=guidance_fn, guidance_carry=guidance_carry,
         collect_interm=collect_interm,
     )

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entries per library: pointers and the stream as void*, sizes as int
 SIGNATURES = {
     "conv_block": {
@@ -42,6 +42,12 @@ SIGNATURES = {
     "dw_conv": {
         "sinddm_dw_conv5x5_f32": [_P] * 5 + [_I] * 5 + [_P],
         "sinddm_dw_conv5x5_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    },
+    "warp_sample": {
+        "sinddm_warp_win_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
+        "sinddm_warp_winx_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
+        "sinddm_warp_winb_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
+        "sinddm_warp_win_bwd": [_P] * 3 + [_I] * 6 + [_P],
     },
 }
 

@@ -9,7 +9,10 @@ The shapes here are small and ragged on purpose (W and H of 1, channel
 counts that are not multiples of the kernels' chunks and tiles); the full
 dim=160 shapes of the sampling path are checked by ``chip_smoke.py``.
 Tolerances as there: fp32 atol 2e-4 + rtol 2e-4 (sum order); bf16 max
-error <= 2e-2 of max |plain|; dw against float64 atol 1e-5.
+error <= 2e-2 of max |plain|; dw against float64 atol 1e-5; the warp kernels
+against their plain version (``bilinear_sample_mm``): value atol 1e-5, image
+gradient 1e-5 of max |gradient| (the adjoint's atomics sum in an order that
+changes from run to run).
 """
 
 import pytest
@@ -17,6 +20,8 @@ import torch
 
 from sinddm_tpu_torch.ops import conv_block as cb
 from sinddm_tpu_torch.ops import dw_conv as dw
+from sinddm_tpu_torch.ops import warp_sample as ws
+from sinddm_tpu_torch.ops.warp import bilinear_sample_mm, warp_homography
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +119,60 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):  # dw weights must have x's type
         dw.depthwise_conv5x5(args[0], args[2].bfloat16(), args[3])
     assert (cb.launches, dw.launches) == (0, 0)
+
+
+@pytest.mark.parametrize("variant", ["win", "winx", "winb"])
+@pytest.mark.parametrize(
+    "b,h,w,c,v,oh,ow,fill",
+    [(1, 19, 23, 3, 1, 17, 13, 0.5), (2, 21, 25, 3, 3, 26, 30, 0.0), (1, 300, 23, 3, 2, 17, 13, 0.5),
+     (3, 1, 1, 1, 2, 5, 7, 1.0), (2, 7, 40, 5, 1, 1, 1, 0.25), (1, 33, 9, 4, 4, 12, 3, 1.0)],
+)
+def test_warp_kernels_match_plain(gen, variant, b, h, w, c, v, oh, ow, fill):
+    """Value and image gradient; coords span -0.2 .. 1.3 of the source, so
+    taps fall inside, on the border and outside. Sources of one pixel, of
+    300 rows (more than the TPU kernels take), channel counts other than 3."""
+    img = torch.rand((b, h, w, c), generator=gen, device="cuda")
+    span = torch.tensor([w, h], device="cuda", dtype=torch.float32)
+    coords = (torch.rand((b, v, oh, ow, 2), generator=gen, device="cuda") * 1.5 - 0.2) * span
+    ct = torch.randn((b, v, oh, ow, c), generator=gen, device="cuda")
+    ws.reset_launches()
+    x = img.clone().requires_grad_(True)
+    out = ws.FORWARDS[variant](x, coords, fill)
+    (grad,) = torch.autograd.grad(out, x, ct)
+    assert ws.launches == {**dict.fromkeys(ws.launches, 0), f"{variant}_fwd": 1, "win_bwd": 1}
+    xr = img.clone().requires_grad_(True)
+    ref = torch.stack([bilinear_sample_mm(xr[i], coords[i], fill) for i in range(b)])
+    (gref,) = torch.autograd.grad(ref, xr, ct)
+    torch.cuda.synchronize()
+    assert out.shape == (b, v, oh, ow, c) and out.is_cuda
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert (grad - gref).abs().max().item() <= 1e-5 * max(gref.abs().max().item(), 1.0)
+
+
+def test_warp_unbatched_far_coords_and_dispatch(gen):
+    """One image with coords [..., 2]; coords far outside (and NaN-free
+    infinities) give pure fill; warp_homography sends a CUDA image on the
+    guidance path through the winx kernel."""
+    img = torch.rand((11, 14, 3), generator=gen, device="cuda")
+    coords = torch.tensor([[-1e9, 3.0], [5.0, 1e9], [float("inf"), 2.0], [-1.0, -1.0], [14.0, 11.0]], device="cuda")
+    for fn in ws.FORWARDS.values():
+        out = fn(img, coords, 0.75)
+        assert out.shape == (5, 3) and torch.equal(out, torch.full_like(out, 0.75))
+    m = torch.tensor([[0.9, 0.05, 1.0], [-0.04, 1.1, -2.0], [1e-4, -2e-4, 1.0]], device="cuda")
+    ws.reset_launches()
+    out = warp_homography(img, m, (9, 12), fill=1.0, mm_adjoint=True)
+    assert ws.launches["winx_fwd"] == 1
+    torch.testing.assert_close(out, warp_homography(img, m, (9, 12), fill=1.0, impl="mm"), atol=1e-5, rtol=0)
+
+
+def test_warp_wrappers_raise_instead_of_falling_back(gen):
+    img = torch.rand((2, 8, 9, 3), generator=gen, device="cuda")
+    coords = torch.rand((2, 4, 5, 2), generator=gen, device="cuda")
+    ws.reset_launches()
+    with pytest.raises(TypeError):
+        ws.bilinear_sample_pallas_winx(img.double(), coords.double())
+    with pytest.raises(ValueError):  # coords on another device
+        ws.bilinear_sample_pallas_winx(img, coords.cpu())
+    with pytest.raises(ValueError):  # coords of another batch
+        ws.bilinear_sample_pallas_winx(img, coords[:1])
+    assert all(n == 0 for n in ws.launches.values())

@@ -74,7 +74,7 @@ def test_scale0_loop_matches_jax(setup):
     theirs, _, _ = jax_sample_scale0(jax_fn, sched_j, shape, key, s=0)
     queue = _NoiseQueue(_replay_draws(key, shape, T))
     with torch.no_grad():
-        ours, _ = sample_scale0(model, sched_t, shape, noise_fn=queue, device="cpu")
+        ours, _, _ = sample_scale0(model, sched_t, shape, noise_fn=queue, device="cpu")
     assert not queue.q  # every draw consumed
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=2e-4)
 
@@ -93,7 +93,7 @@ def test_via_scale_loop_matches_jax(setup, s, custom_t, omega):
     )
     queue = _NoiseQueue(_replay_draws(key, shape, custom_t))
     with torch.no_grad():
-        ours, _ = sample_via_scale(
+        ours, _, _ = sample_via_scale(
             model, sched_t, resize_bilinear(torch.from_numpy(base), SIZES_HW[s]),
             s=s, total_t=custom_t, omega=omega, noise_fn=queue,
         )
