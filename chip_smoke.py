@@ -9,12 +9,14 @@ each of which exits non-zero when it fails:
 1. identify the card; turn TF32 off so the plain versions are true fp32;
 2. build the CUDA kernels from ``sinddm_tpu_torch/csrc`` for sm_90a;
 3. hold each kernel against its plain version at the main path's shapes
-   (the four dim=160 blocks at 16x186x248, fp32 and bf16; the four view-warp
+   (the four dim=160 blocks at 16x186x248, fp32 and bf16; the eight view-warp
    kernels at 16 images x 8 views of 224x298 from 186x248x3, value and image
-   gradient) and at ragged shapes (1x19x21; a 300-row source);
+   gradient; win3 also against the exact warp) and at ragged shapes
+   (1x19x21; a 300-row source);
 4. time each kernel with CUDA events beside its bound, its plain version
    and, where there is one, the one PyTorch call that computes it
-   (``F.conv2d`` with groups, ``F.grid_sample``);
+   (``F.conv2d`` with groups, ``F.grid_sample``; for win3 the library call
+   computes the exact warp, not the split one);
 5. sample the full 5-scale balloons pyramid at dim=160, batch 16, fp32,
    with seeded random weights, through the kernels: check shapes, finite
    values and the launch counts; profile a second walk (device time by
@@ -25,8 +27,15 @@ each of which exits non-zero when it fails:
    published widths, batch 16, 16 views in chunks of 8: 143 guided steps.
    Check shapes, values, the guided-step counts and the launch counts;
    profile a few guided steps; run one guidance iteration through each of
-   the other two warp kernels, and one whole guided step, against the same
-   computation through the plain warp.
+   the other four forward kernels (and their adjoints), and one whole guided
+   step, against the same computation through the plain warp; one guidance
+   iteration and a profile of a few guided steps with the bf16 vision tower
+   against the fp32 one;
+7. ``clip_roi`` on the same denoiser and ViT-B/32: a 96x128 box of a seeded
+   186x248 image, batch 16, 100 ascent iterations through the whole-image
+   warp kernels (``--warp_impl pallas``), then 3 denoising steps at the finest
+   scale. Check shape, values, the score trace and the launch counts; hold
+   one ascent iteration against the plain warp; profile a few iterations.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -43,6 +52,11 @@ Tolerances (max |kernel - plain| against the plain version's values):
   * view-warp kernels against ``bilinear_sample_mm`` (TF32 off): value atol
     1e-5, image gradient 1e-5 of max |gradient| -- the same fp32 products in
     another order, the adjoint's atomics in an order that changes per run;
+    win3 against ``bilinear_sample_split3`` (the same bf16 splits in matrix
+    products) the same bounds, and against ``bilinear_sample_mm`` the bounds
+    of the JAX package's test (tests/test_pallas_warp.py
+    test_windowed_split3_close_to_exact): value atol 3e-4, gradient 7e-5 of
+    max |gradient| (2e-3 on a gradient of max ~30);
   * one guidance iteration (warp, colour ops, ViT-B/32 forward and backward)
     through a warp kernel against the same through the plain warp: gradient
     within GUIDE_TOL of max |gradient| for all but GUIDE_OUTLIERS of the
@@ -52,11 +66,15 @@ Tolerances (max |kernel - plain| against the plain version's values):
     takes the other branch, which moves the four source pixels under it;
   * one whole guided step (the hook): x within 1e-4 absolute for all but
     GUIDE_OUTLIERS of the elements (the same kinks), the mask equal except
-    at most 0.1% of the pixels (an energy within rounding of the quantile).
+    at most 0.1% of the pixels (an energy within rounding of the quantile);
+  * one guidance iteration with the bf16 vision tower against the fp32 one:
+    finite, the loss within 2e-2 relative (bf16 keeps ~3 digits); the
+    gradients' cosine is printed, not bounded.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -84,11 +102,18 @@ N_AUG, VIEW_CHUNK = 16, 8
 STRENGTH, FILL_FACTOR, STOP_GUIDANCE = 0.3, 0.3, 3
 GUIDE_TOL, GUIDE_OUTLIERS, GUIDE_WORST = 1e-5, 1e-3, 5e-2
 WARP_REPLACES = {  # C entry -> the TPU kernel's pallas_call
+    "whole_fwd": "sinddm_tpu/ops/pallas_warp.py:160",
+    "whole_bwd": "sinddm_tpu/ops/pallas_warp.py:198",
     "win_fwd": "sinddm_tpu/ops/pallas_warp.py:402",
     "winx_fwd": "sinddm_tpu/ops/pallas_warp.py:546",
     "winb_fwd": "sinddm_tpu/ops/pallas_warp.py:641",
     "win_bwd": "sinddm_tpu/ops/pallas_warp.py:441",
+    "win3_fwd": "sinddm_tpu/ops/pallas_warp.py:824",
+    "win3_bwd": "sinddm_tpu/ops/pallas_warp.py:864",
 }
+# the JAX package's win3 gradient error through Mosaic on the TPU (max |dg| on max |g|)
+TPU_WIN3_GRAD_ERR = (7.43, 30.4)
+ROI_BOX = (48, 64, 96, 128)  # y x h w: a quarter of the 186x248 image, views of 224x298
 
 # Dense peak rates (NVIDIA data sheets): fp32 SIMT, TF32 and bf16 tensor
 # cores in FLOP/s, device memory in B/s.
@@ -158,21 +183,26 @@ def err_stats(out, ref):
     return d, max_abs, max_abs / max(ref_max, 1e-30)
 
 
-def warp_work(b, n, h, w, c, adjoint):
+def warp_work(b, n, h, w, c, adjoint, split3=False):
     """FLOPs and bytes one warp launch must do: coords read, the source read
-    and the samples written (forward), or the cotangent read and the image
-    gradient zeroed and written (adjoint)."""
+    (fp32, or win3's two bf16 planes: the same bytes) and the samples written
+    (forward), or the cotangent read and the image gradient zeroed and
+    written (adjoint)."""
     img_bytes = 4 * b * h * w * c
     nbytes = b * n * (8 + 4 * c) + (2 * img_bytes if adjoint else img_bytes)
-    flops = b * n * (12 + 8 * c)  # two hat rows a pixel, four weighted taps a channel
-    return flops, nbytes
+    # two hat rows a pixel; four weighted taps a channel, or win3's three
+    # two-term dots at each of two columns (25) / split products at four taps (22)
+    per_c = (22 if adjoint else 25) if split3 else 8
+    return b * n * (12 + per_c * c), nbytes
 
 
-def plain_warp(img, coords, fill):
-    """The plain version at the kernels' batching: bilinear_sample_mm an image."""
+def plain_warp(img, coords, fill, one=None):
+    """The plain version at the kernels' batching: ``one`` (bilinear_sample_mm
+    unless given) an image."""
     from sinddm_tpu_torch.ops.warp import bilinear_sample_mm
 
-    return torch.stack([bilinear_sample_mm(img[b], coords[b], fill) for b in range(img.shape[0])])
+    one = one or bilinear_sample_mm
+    return torch.stack([one(img[b], coords[b], fill) for b in range(img.shape[0])])
 
 
 def grid_sample_inputs(img, coords):
@@ -187,6 +217,20 @@ def grid_sample_inputs(img, coords):
 
 def share_over(diff, tol):
     return (diff > tol).float().mean().item()
+
+
+def iteration_check(label, loss_k, grad_k, loss_p, grad_p, extra=""):
+    """Print one guidance iteration against another (GUIDE tolerances) and
+    return whether it passes, and the gradients' cosine."""
+    g_max = grad_p.abs().max().item()
+    diff = (grad_k - grad_p).abs()
+    over, worst = share_over(diff, GUIDE_TOL * g_max), diff.max().item()
+    cos = ((grad_k * grad_p).sum() / (grad_k.norm() * grad_p.norm())).item()
+    ok = over <= GUIDE_OUTLIERS and worst <= GUIDE_WORST * g_max and abs(loss_k.item() - loss_p.item()) <= 1e-4
+    say(f"[{label}] loss {loss_k.item():.6f} vs {loss_p.item():.6f} grad: median |diff| {diff.median().item():.3e} "
+        f"share over {GUIDE_TOL:g}*max|g| {over:.3e} (<= {GUIDE_OUTLIERS:g}) worst {worst:.3e} of max|g| "
+        f"{g_max:.3e} (<= {GUIDE_WORST:g}*max|g|) cosine {cos:.8f} {extra}{'ok' if ok else 'over the GUIDE bounds'}")
+    return ok, cos
 
 
 def profile_walk(run):
@@ -209,6 +253,42 @@ def profile_walk(run):
     return by_name, busy, window
 
 
+OTHER = "other (elementwise, softmax, norms, sort)"
+
+
+def kernel_group(kname: str) -> str:
+    """The PERF.md group of a device kernel, by its name."""
+    low = kname.lower()
+    if "sinddm" in low and "warp_" in low:
+        return "warp adjoint" if "_bwd" in low else "warp forward"
+    if "sinddm" in low:
+        return "denoiser conv kernels"
+    if any(t in low for t in ("gemm", "cutlass", "gemv", "cublas", "nvjet", "xmma")):
+        return "matrix products (tower)"
+    return OTHER
+
+
+def profile_groups(tag, what, unit, n, run):
+    """Profile ``run`` (``n`` units of work) and print device time by group
+    and the top kernels; returns {group: ms a unit} or None."""
+    prof = profile_walk(run)
+    if prof is None:
+        say(f"[{tag}] torch.profiler recorded no device activity: breakdown not measured")
+        return None
+    by_name, busy, window = prof
+    groups = dict.fromkeys(("warp forward", "warp adjoint", "denoiser conv kernels", "matrix products (tower)", OTHER), 0.0)
+    for kname, (us, _) in by_name.items():
+        groups[kernel_group(kname)] += us
+    say(f"[{tag}] {what}: device busy_ms {busy / 1e3:.1f} kernel-window_ms {window / 1e3:.1f} "
+        f"idle_share {1 - busy / window:.4f} kernels {sum(c for _, c in by_name.values())}")
+    for gname, us in groups.items():
+        say(f"[{tag}] {us / busy:7.2%} {us / n / 1e3:10.2f} ms/{unit}  {gname}")
+    for kname, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        say(f"[{tag}] {us / busy:7.2%} {us / 1e3:10.1f} ms {c:6d}x {kname[:110]}")
+    return {g: us / n / 1e3 for g, us in groups.items()} | {"busy_ms_per_" + unit: busy / n / 1e3,
+                                                          "idle_share": 1 - busy / window}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -216,7 +296,15 @@ def main() -> None:
         fail(f"run from the root of a checkout: {ROOT / 'sinddm_tpu_torch'} is missing")
     sys.path.insert(0, str(ROOT))
 
-    from sinddm_tpu_torch.apps.clip_apps import clip_mode_config, clip_sampling
+    from sinddm_tpu_torch.apps.clip_apps import (
+        ROI_ASCENT_ITERS,
+        ROI_DENOISING_STEPS,
+        ROI_STRENGTH,
+        _clip_roi_ascent,
+        clip_mode_config,
+        clip_roi_sampling,
+        clip_sampling,
+    )
     from sinddm_tpu_torch.apps.sampling import sample_scales
     from sinddm_tpu_torch.diffusion.core import sample_via_scale
     from sinddm_tpu_torch.guidance import clip_extractor as ce, clip_guidance as cg
@@ -336,9 +424,34 @@ def main() -> None:
             if not ok:
                 fail(f"warp kernel {variant} ({case}) disagrees with its plain version")
             if case == "main":
+                bwd = f"{ws.ADJOINT[variant]}_bwd"
                 results["warp_err"][f"{variant}_fwd"] = v_err
-                results["warp_err"]["win_bwd"] = max(results["warp_err"].get("win_bwd", 0.0), g_err)
-        del ct, x_ref, ref, g_ref
+                results["warp_err"][bwd] = max(results["warp_err"].get(bwd, 0.0), g_err)
+        # win3 against its plain version (the same splits as matrix products)
+        # and against the exact warp, at the JAX test's bounds
+        x_s3 = img.clone().requires_grad_(True)
+        ref3 = plain_warp(x_s3, coords, fill, ws.bilinear_sample_split3)
+        (g_ref3,) = torch.autograd.grad(ref3, x_s3, ct)
+        x_in = img.clone().requires_grad_(True)
+        out = ws.bilinear_sample_pallas_win3(x_in, coords, fill)
+        (g_out,) = torch.autograd.grad(out, x_in, ct)
+        torch.cuda.synchronize()
+        v_err, g_err = (out - ref3).abs().max().item(), (g_out - g_ref3).abs().max().item()
+        e_err, eg_err = (out - ref).abs().max().item(), (g_out - g_ref).abs().max().item()
+        ok = (v_err <= 1e-5 and g_err <= 1e-5 * g_ref3.abs().max().item()
+              and e_err <= 3e-4 and eg_err <= 7e-5 * g_max)
+        say(f"[check warp win3 {case} img {'x'.join(map(str, img.shape))} coords {'x'.join(map(str, coords.shape))} "
+            f"fill {fill}] vs split3 plain: value max_abs {v_err:.3e} (atol 1e-5) grad max_abs {g_err:.3e} "
+            f"(<= 1e-5 * max|g|) | vs exact fp32: value max_abs {e_err:.3e} (atol 3e-4) grad max_abs "
+            f"{eg_err:.3e} of max|g| {g_max:.3e}, ratio {eg_err / g_max:.3e} (<= 7e-5; the TPU kernel's "
+            f"{TPU_WIN3_GRAD_ERR[0]} / {TPU_WIN3_GRAD_ERR[1]} = {TPU_WIN3_GRAD_ERR[0] / TPU_WIN3_GRAD_ERR[1]:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"warp kernel win3 ({case}) disagrees with its plain version or leaves the bf16x3 bound")
+        if case == "main":
+            results["warp_err"]["win3_fwd"], results["warp_err"]["win3_bwd"] = v_err, g_err
+            results["win3_vs_exact"] = dict(value=e_err, grad=eg_err, grad_max=g_max)
+        del ct, x_ref, ref, g_ref, x_s3, ref3, g_ref3, x_in, out, g_out
 
     # ---- 4. times at the main path's shapes ---------------------------------
     for dtype, dname, rate in ((torch.float32, "fp32", peaks["fp32"]), (torch.bfloat16, "bf16", peaks["bf16"])):
@@ -397,11 +510,22 @@ def main() -> None:
         plain_b = time_ms(lambda: torch.autograd.grad(plain_out, x_plain, ct, retain_graph=True), reps=2, warm=1)
         coords3 = coords.reshape(BATCH, -1, 2)
         timed = [(f"{v}_fwd", (lambda fn=fn: fn(warp_img, coords, 1.0)), plain_f, lib_f) for v, fn in ws.FORWARDS.items()]
-        timed.append(("win_bwd", lambda: ws.warp_adjoint(ct, coords3, warp_img.shape), plain_b, lib_b))
+        timed += [(f"{a}_bwd", (lambda a=a: ws.warp_adjoint(ct, coords3, warp_img.shape, a)), plain_b, lib_b)
+                  for a in ("whole", "win")]
+        if n_views == VIEW_CHUNK:  # win3 beside its own plain version, at one launch of the path
+            x_s3 = warp_img.clone().requires_grad_(True)
+            out_s3 = plain_warp(x_s3, coords, 1.0, ws.bilinear_sample_split3)
+            with torch.no_grad():
+                plain3_f = time_ms(lambda: plain_warp(warp_img, coords, 1.0, ws.bilinear_sample_split3), reps=2, warm=1)
+            plain3_b = time_ms(lambda: torch.autograd.grad(out_s3, x_s3, ct, retain_graph=True), reps=2, warm=1)
+            del x_s3, out_s3
+            timed += [("win3_fwd", lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0), plain3_f, lib_f),
+                      ("win3_bwd", lambda: ws.warp_adjoint(ct, coords3, warp_img.shape, "win3"), plain3_b, lib_b)]
         for entry, run, p_ms, l_ms in timed:
             with torch.no_grad():
                 k_ms = time_ms(run, reps=20)
-            flops, nbytes = warp_work(BATCH, n_px, h_fin, w_fin, 3, adjoint=entry == "win_bwd")
+            flops, nbytes = warp_work(BATCH, n_px, h_fin, w_fin, 3, adjoint=entry.endswith("_bwd"),
+                                      split3=entry.startswith("win3"))
             b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
             say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
                 f"MFLOP {flops / 1e6:.1f} MB {nbytes / 1e6:.1f} bound_ms {b_ms:.4f} ({b_by}) GB/s {nbytes / k_ms / 1e6:.1f}")
@@ -513,7 +637,7 @@ def main() -> None:
     g_launches = {"conv_block": cb.launches, "dw_conv": dw.launches, **ws.launches}
     n_guided = tuple(0 if a is None else a["n_guided"] for a in g_aux)
     steps = sum(n_guided)
-    g_expect = {**expect, "win_fwd": 0, "winx_fwd": steps * n_chunks, "winb_fwd": 0, "win_bwd": steps * n_chunks}
+    g_expect = {**expect, **dict.fromkeys(ws.launches, 0), "winx_fwd": steps * n_chunks, "win_bwd": steps * n_chunks}
     say(f"[guided walk] clip_content strength {STRENGTH} fill_factor {FILL_FACTOR} batch {BATCH} dim {DIM} "
         f"ViT-B/32 (random, seed 0) n_aug {N_AUG} view_chunk {VIEW_CHUNK} fp32: n_guided {list(n_guided)} "
         f"guided_steps {steps} wall_s {g_wall:.3f} s_per_guided_step {(g_wall - wall) / steps:.4f} "
@@ -539,64 +663,59 @@ def main() -> None:
     hook_kw = dict(s=n_scales - 1, n_scales=n_scales, sub_iters=1, strength=STRENGTH,
                    quantile=1.0 - FILL_FACTOR, llambda=0.2)
 
-    def guided_steps(n):
-        fn = cg.make_clip_guidance(extractor, text_hr, stop_guidance=0, **hook_kw)
+    def guided_steps(n, ex=extractor):
+        fn = cg.make_clip_guidance(ex, text_hr, stop_guidance=0, **hook_kw)
         with torch.no_grad():
             sample_via_scale(model, sched, g_outs[-1], s=n_scales - 1, total_t=n, reblurring=False,
                              generator=guide_gen, guidance_fn=fn,
                              guidance_carry=cg.init_clip_carry(BATCH, (h_fin, w_fin)))
 
     guided_steps(1)
-    prof = profile_walk(lambda: guided_steps(4))
-    if prof is None:
-        say("[profile guided] torch.profiler recorded no device activity: breakdown not measured")
-    else:
-        by_name, busy, window = prof
-        groups = {"warp forward": 0.0, "warp adjoint": 0.0, "denoiser conv kernels": 0.0,
-                  "matrix products (tower)": 0.0, "other (elementwise, softmax, norms, sort)": 0.0}
-        for kname, (us, _) in by_name.items():
-            low = kname.lower()
-            key = ("warp adjoint" if "warp_win_bwd" in low else
-                   "warp forward" if "warp_win" in low else
-                   "denoiser conv kernels" if "sinddm" in low else
-                   "matrix products (tower)" if any(t in low for t in ("gemm", "cutlass", "gemv", "cublas")) else
-                   "other (elementwise, softmax, norms, sort)")
-            groups[key] += us
-        say(f"[profile guided] 4 guided steps at {h_fin}x{w_fin}: device busy_ms {busy / 1e3:.1f} kernel-window_ms "
-            f"{window / 1e3:.1f} idle_share {1 - busy / window:.4f} kernels {sum(n for _, n in by_name.values())}")
-        for gname, us in groups.items():
-            say(f"[profile guided] {us / busy:7.2%} {us / 4e3:10.2f} ms/step  {gname}")
-        for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-            say(f"[profile guided] {us / busy:7.2%} {us / 1e3:10.1f} ms {n:6d}x {kname[:110]}")
+    results["guided_step"] = profile_groups("profile guided", f"4 guided steps at {h_fin}x{w_fin}", "step", 4,
+                                            lambda: guided_steps(4))
 
     # one guidance iteration (views, tower, backward) through each of the other
-    # two forward kernels, against the same iteration through the plain warp
+    # four forward kernels, against the same iteration through its plain
+    # version (win3's: the same splits as matrix products, "mm_split3")
     x01 = (g_outs[-1].clamp(-1.0, 1.0) + 1.0) * 0.5
     draws = extractor.draw(BATCH, text_hr.shape[0])
-    plain_ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, warp_impl="mm")
-    with torch.no_grad():
-        loss_p, grad_p = plain_ex.clip_loss_and_grad(x01, text_hr, draws)
-    g_max = grad_p.abs().max().item()
-    for impl, entry in (("pallas_win", "win_fwd"), ("pallas_winb", "winb_fwd"), ("pallas_winx", "winx_fwd")):
-        ws.reset_launches()
+
+    def iteration(impl, model_=clip_model):
         with torch.no_grad():
-            loss_k, grad_k = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK,
-                                              warp_impl=impl).clip_loss_and_grad(x01, text_hr, draws)
+            out = ce.ClipExtractor(model_, n_aug=N_AUG, view_chunk=VIEW_CHUNK,
+                                   warp_impl=impl).clip_loss_and_grad(x01, text_hr, draws)
         torch.cuda.synchronize()
-        want = {**dict.fromkeys(ws.launches, 0), entry: n_chunks, "win_bwd": n_chunks}
+        return out
+
+    plain = {"mm": iteration("mm"), "mm_split3": iteration("mm_split3")}
+    plain_ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, warp_impl="mm")
+    for impl, variant in (("pallas_win", "win"), ("pallas_winb", "winb"), ("pallas_winx", "winx"),
+                          ("pallas", "whole"), ("pallas_win3", "win3")):
+        entry, adjoint = f"{variant}_fwd", f"{ws.ADJOINT[variant]}_bwd"
+        ws.reset_launches()
+        loss_k, grad_k = iteration(impl)
+        want = {**dict.fromkeys(ws.launches, 0), entry: n_chunks, adjoint: n_chunks}
         if ws.launches != want:
             fail(f"--warp_impl {impl}: launches {ws.launches} != {want}")
-        if entry != "winx_fwd":  # winx's and the adjoint's counts are the guided walk's
+        # the paths of the records: winx and win_bwd the guided walk, whole clip_roi (phase 7),
+        # win, winb and win3 (with its adjoint) this iteration
+        if variant in ("win", "winb", "win3"):
             g_launches[entry] = ws.launches[entry]
-        diff = (grad_k - grad_p).abs()
-        over, worst = share_over(diff, GUIDE_TOL * g_max), diff.max().item()
-        ok = over <= GUIDE_OUTLIERS and worst <= GUIDE_WORST * g_max and abs(loss_k.item() - loss_p.item()) <= 1e-4
-        say(f"[check guidance iteration --warp_impl {impl} vs plain] loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
-            f"grad: median |diff| {diff.median().item():.3e} share over {GUIDE_TOL:g}*max|g| {over:.3e} "
-            f"(<= {GUIDE_OUTLIERS:g}) worst {worst:.3e} of max|g| {g_max:.3e} (<= {GUIDE_WORST:g}*max|g|) "
-            f"launches {ws.launches} {'ok' if ok else 'FAIL'}")
+        if variant == "win3":
+            g_launches[adjoint] = ws.launches[adjoint]
+        plain_impl = "mm_split3" if variant == "win3" else "mm"
+        ok, _ = iteration_check(f"check guidance iteration --warp_impl {impl} vs {plain_impl}", loss_k, grad_k,
+                                *plain[plain_impl], extra=f"launches {ws.launches} ")
         if not ok:
-            fail(f"a guidance iteration through {impl} disagrees with the plain warp")
+            fail(f"a guidance iteration through {impl} disagrees with its plain version")
+        if variant == "win3":
+            # the split's own error, through the colour ops and the tower: a finding, bounded loosely
+            _, cos = iteration_check("finding: guidance iteration --warp_impl pallas_win3 vs exact mm", loss_k, grad_k,
+                                     *plain["mm"])
+            rel = abs(loss_k.item() - plain["mm"][0].item()) / abs(plain["mm"][0].item())
+            results["win3_iteration"] = dict(loss_rel=rel, grad_cos=cos)
+            if not (rel <= 1e-4 and cos >= 0.99):
+                fail(f"win3's guidance iteration is off the exact one: loss {rel:.3e} relative, cosine {cos:.6f}")
 
     # one whole guided step, the hook: kernel (winx, the default) against plain
     x_recon = g_outs[-1] + 0.05 * torch.randn(g_outs[-1].shape, generator=gen, device="cuda")
@@ -619,7 +738,88 @@ def main() -> None:
     if not ok:
         fail("a guided step through the kernels disagrees with the plain warp")
 
-    # ---- 7. records -----------------------------------------------------------
+    # the bf16 vision tower (--clip_dtype bfloat16): the same weights, its
+    # matrix products on the bf16 tensor cores; one guidance iteration against
+    # the fp32 tower's, and a profile of guided steps
+    bf16_model = random_clip_params(dataclasses.replace(VIT_B_32, compute_dtype="bfloat16"), seed=0, device="cuda")
+    bf16_ex = ce.ClipExtractor(bf16_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, generator=guide_gen)
+    loss_f, grad_f = iteration(None)
+    loss_b, grad_b = iteration(None, bf16_model)
+    rel = abs(loss_b.item() - loss_f.item()) / abs(loss_f.item())
+    cos = ((grad_b * grad_f).sum() / (grad_b.norm() * grad_f.norm())).item()
+    ok = bool(torch.isfinite(loss_b)) and bool(torch.isfinite(grad_b).all()) and rel <= 2e-2
+    say(f"[check guidance iteration bf16 tower vs fp32 tower] loss {loss_b.item():.6f} vs {loss_f.item():.6f} "
+        f"relative {rel:.3e} (<= 2e-2) gradient cosine {cos:.6f} max|g| {grad_b.abs().max().item():.3e} vs "
+        f"{grad_f.abs().max().item():.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the bf16 tower's guidance iteration is not finite or its loss is off the fp32 tower's")
+    results["bf16_tower"] = dict(loss_rel=rel, grad_cos=cos)
+    guided_steps(1, bf16_ex)
+    results["bf16_step"] = profile_groups("profile guided bf16", f"4 guided steps at {h_fin}x{w_fin}, bf16 tower",
+                                          "step", 4, lambda: guided_steps(4, bf16_ex))
+    del bf16_model, bf16_ex, grad_f, grad_b
+
+    # ---- 7. the clip_roi path ----------------------------------------------------
+    # a seeded image at each pyramid size (clip_roi edits the finest); the box is
+    # a quarter of it, so its views are 224x298 as in phase 6
+    roi_pyr = Pyramid(
+        sizes_hw=tuple(sizes_hw), sizes_wh=tuple(sizes_wh),
+        images=tuple((torch.rand((h, w, 3), generator=gen, device="cuda") * 2 - 1).cpu().numpy() for h, w in sizes_hw),
+        recon_images=(), rescale_losses=BALLOONS_LOSSES, scale_factor=factor, n_scales=n_scales)
+    roi_ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, warp_impl="pallas", generator=guide_gen)
+    roi_text = "Fire in the Forest"
+    cb.launches = 0
+    dw.launches = 0
+    ws.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    roi_out, roi_scores, _ = clip_roi_sampling(
+        model, sched, roi_pyr, roi_ex, text_input=roi_text, strength=ROI_STRENGTH, sample_batch_size=BATCH,
+        num_clip_iters=ROI_ASCENT_ITERS, num_denoising_steps=ROI_DENOISING_STEPS, clip_roi_bb=ROI_BOX,
+        generator=guide_gen, device="cuda")
+    torch.cuda.synchronize()
+    roi_wall = time.perf_counter() - t0
+    roi_peak = torch.cuda.max_memory_allocated() / 1e9
+    r_launches = {"conv_block": cb.launches, "dw_conv": dw.launches, **ws.launches}
+    r_expect = {"conv_block": ROI_DENOISING_STEPS * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": ROI_DENOISING_STEPS * 4,
+                **dict.fromkeys(ws.launches, 0), "whole_fwd": ROI_ASCENT_ITERS * n_chunks,
+                "whole_bwd": ROI_ASCENT_ITERS * n_chunks}
+    say(f"[clip_roi walk] box {ROI_BOX} of {h_fin}x{w_fin} batch {BATCH} dim {DIM} ViT-B/32 (random, seed 0) n_aug "
+        f"{N_AUG} view_chunk {VIEW_CHUNK} --warp_impl pallas fp32: {ROI_ASCENT_ITERS} ascent iterations + "
+        f"{ROI_DENOISING_STEPS} denoising steps wall_s {roi_wall:.3f} s_per_iteration {roi_wall / ROI_ASCENT_ITERS:.4f} "
+        f"(the walk's wall over its iterations) peak_GB {roi_peak:.2f} score first {roi_scores[0].item():.4f} last "
+        f"{roi_scores[-1].item():.4f} launches {r_launches}")
+    if r_launches != r_expect:
+        fail(f"clip_roi launch counts {r_launches} != expected {r_expect}")
+    if tuple(roi_out.shape) != (BATCH, h_fin, w_fin, 3) or not bool(torch.isfinite(roi_out).all()):
+        fail(f"clip_roi output: shape {tuple(roi_out.shape)} or non-finite values")
+    if roi_out.abs().max().item() > 1.0 + 1e-5:
+        fail(f"clip_roi output leaves [-1, 1]: {roi_out.abs().max().item()}")
+    if tuple(roi_scores.shape) != (ROI_ASCENT_ITERS,) or not bool(torch.isfinite(roi_scores).all()):
+        fail(f"clip_roi score trace: shape {tuple(roi_scores.shape)} or non-finite values")
+    g_launches["whole_fwd"], g_launches["whole_bwd"] = r_launches["whole_fwd"], r_launches["whole_bwd"]
+
+    # one ascent iteration through kernels 3-4 against the plain warp, on the box
+    y, x, h, w = ROI_BOX
+    finest = torch.as_tensor(roi_pyr.images[-1], device="cuda")
+    patch = finest[None, y : y + h, x : x + w].expand(BATCH, h, w, 3).contiguous()
+    text_lr = roi_ex.get_text_embedding(roi_text, ce.get_augmentations_template("lr"))
+    roi_draws = roi_ex.draw(BATCH, text_lr.shape[0])
+    with torch.no_grad():
+        roi_k = roi_ex.clip_loss_and_grad((patch + 1) * 0.5, text_lr, roi_draws)
+        roi_p = plain_ex.clip_loss_and_grad((patch + 1) * 0.5, text_lr, roi_draws)
+    torch.cuda.synchronize()
+    ok, _ = iteration_check("check clip_roi ascent iteration --warp_impl pallas vs mm", *roi_k, *roi_p)
+    if not ok:
+        fail("a clip_roi ascent iteration through kernels 3-4 disagrees with the plain warp")
+    _clip_roi_ascent(roi_ex, patch, text_lr, 1, ROI_STRENGTH)
+    results["roi_iteration"] = profile_groups(
+        "profile clip_roi", f"3 ascent iterations on the {h}x{w} box", "iteration", 3,
+        lambda: _clip_roi_ascent(roi_ex, patch, text_lr, 3, ROI_STRENGTH))
+    del patch, roi_k, roi_p
+
+    # ---- 8. records -----------------------------------------------------------
     replaces = {
         "conv_block": "sinddm_tpu/ops/pallas_conv.py:234",
         "dw_conv": "sinddm_tpu/ops/pallas_dw.py:93",
@@ -643,6 +843,15 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
         })
+    # the paths' record: walk times, device time by group a guided step or an
+    # ascent iteration (ms), and the reduced-precision findings
+    say("[paths] " + json.dumps({
+        "sample_walk_s": wall, "clip_content_walk_s": g_wall, "clip_roi_walk_s": roi_wall,
+        "clip_roi_s_per_iteration": roi_wall / ROI_ASCENT_ITERS, "clip_roi_peak_GB": roi_peak,
+        "guided_step_fp32": results["guided_step"], "guided_step_bf16": results["bf16_step"],
+        "clip_roi_iteration": results["roi_iteration"], "bf16_tower_vs_fp32": results["bf16_tower"],
+        "win3_vs_exact": results["win3_vs_exact"], "win3_iteration_vs_exact": results["win3_iteration"],
+    }))
     say(f"[done] total_s {time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -159,3 +159,20 @@ def sample_scales(
                 collect_aux.append(aux)
             outputs.append(x)
     return outputs
+
+
+def save_interm_scales(aux: Sequence[Any], scales: Sequence[int], sched: Schedules, n_scales: int,
+                       sample_limited_t: bool, results_folder) -> None:
+    """Write each scale's collected frames (``aux[i]["interm"]``, scale
+    ``scales[i]``) as ``interm_samples_scale_{s}/output_t-{t:03}_s-{s}.png``,
+    t counting down to the scale's last step; entries without frames are
+    skipped."""
+    from pathlib import Path
+
+    from sinddm_tpu_torch.ops.image_io import save_interm_frames
+
+    for s, a in zip(scales, aux):
+        if not isinstance(a, dict) or a.get("interm") is None:
+            continue
+        t_min = int(sched.num_timesteps_ideal[s + 1]) if (sample_limited_t and s < n_scales - 1) else 0
+        save_interm_frames(a["interm"], Path(results_folder) / f"interm_samples_scale_{s}", s=s, t_min=t_min)

@@ -1,14 +1,17 @@
 """Command line of the port: ``python -m sinddm_tpu_torch.cli --mode sample``
 and the CLIP-guided modes ``clip_content``, ``clip_style_gen``,
-``clip_style_trans``.
+``clip_style_trans`` and ``clip_roi`` (``--target_roi y x h w`` or
+``--interactive``).
 
 Takes the flags of ``sinddm_tpu.cli`` for these modes with the same
-defaults, plus ``--load_checkpoint`` (an ``.npz`` of the JAX package's
-denoiser parameters, ``/``-joined keys; without it the weights are random
-from ``--seed``) and ``--device`` (default ``cuda``). Writes the same
-``final_samples/`` files as the JAX CLI. A CLIP mode needs a ViT-B/32
-checkpoint (``--clip_weights`` or one of the sniffed paths) and stops
-without one. The other modes arrive with their slices.
+defaults and help (``--save_interm``, ``--clip_dtype``, ``--warp_precision``,
+``--warp_impl`` among them), plus ``--load_checkpoint`` (an ``.npz`` of the
+JAX package's denoiser parameters, ``/``-joined keys; without it the weights
+are random from ``--seed``) and ``--device`` (default ``cuda``). Writes the
+same ``final_samples/`` and ``interm_samples_*/`` files as the JAX CLI. A
+CLIP mode needs a ViT-B/32 checkpoint (``--clip_weights`` or one of the
+sniffed paths) and stops without one. The other modes arrive with their
+slices.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import os
 from pathlib import Path
 
 
-CLIP_MODES = ("clip_content", "clip_style_gen", "clip_style_trans")
+CLIP_MODES = ("clip_content", "clip_style_gen", "clip_style_trans", "clip_roi")
 
 
 def _positive_int(v: str) -> int:
@@ -50,12 +53,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npz of the denoiser's parameters in the JAX package's "
                         "layout, '/'-joined keys (e.g. l3/net_conv1/kernel)")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    p.add_argument("--target_roi", nargs=4, type=int,
+                   help="source ROI box 'y x h w' (headless)")
+    p.add_argument("--interactive", action="store_true",
+                   help="use the OpenCV ROI selector instead of flags")
+    p.add_argument("--save_interm", action="store_true",
+                   help="dump every intermediate denoised state as PNG grids under "
+                        "interm_samples_scale_{s}/ (and interm_samples_clip_roi/ for "
+                        "clip_roi) -- all sampling modes")
     # clip
     p.add_argument("--clip_text", default="Fire in the Forest")
     p.add_argument("--fill_factor", type=float)
     p.add_argument("--strength", type=float)
     p.add_argument("--clip_weights", default=None,
                    help="path to CLIP ViT-B/32 weights (OpenAI .pt archive or a state dict)")
+    p.add_argument("--clip_dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="CLIP vision-tower compute dtype (bfloat16: the tower's matrix "
+                        "products on the bf16 tensor cores, parameters and LayerNorms fp32)")
+    p.add_argument("--warp_precision", default="highest", choices=["highest", "high"],
+                   help="precision of the matrix-product view warp (--warp_impl mm, and "
+                        "the CPU path): 'highest' is fp32-exact vs the gather path; 'high' "
+                        "runs its products in TF32 on a CUDA device. The warp kernels "
+                        "ignore it")
     p.add_argument("--n_aug", type=_positive_int, default=16,
                    help="augmented CLIP views per guided image")
     p.add_argument("--clip_view_chunk", type=int, default=8,
@@ -65,9 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["mm", "pallas", "pallas_win", "pallas_winx", "pallas_winb"],
                    help="guidance view-warp executor (default: the 'pallas_winx' CUDA "
                         "kernel on a CUDA device, the matrix-product version on the "
-                        "CPU). 'mm' forces the matrix-product version; 'pallas_win' / "
-                        "'pallas_winb' are the other kernels of "
-                        "sinddm_tpu_torch/csrc/warp_sample.cu; 'pallas' is not ported yet")
+                        "CPU). 'mm' forces the matrix-product version; 'pallas' (whole "
+                        "image), 'pallas_win' and 'pallas_winb' are the other kernels of "
+                        "sinddm_tpu_torch/csrc/warp_sample.cu")
     return p
 
 
@@ -79,7 +98,7 @@ def main(argv=None) -> None:
 def run(args) -> list:
     import torch
 
-    from sinddm_tpu_torch.apps.sampling import sample_scales
+    from sinddm_tpu_torch.apps.sampling import sample_scales, save_interm_scales
     from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
     from sinddm_tpu_torch.ops.image_io import save_image
     from sinddm_tpu_torch.pyramid import build_pyramid
@@ -110,14 +129,19 @@ def run(args) -> list:
             (args.scale_mul[0], args.scale_mul[1]), results_folder, device,
         )
 
+    interm_aux = [] if args.save_interm else None
     outs = sample_scales(
         model, sched, pyramid.sizes_hw,
         scale_factor=pyramid.scale_factor, n_scales=pyramid.n_scales,
         batch_size=args.sample_batch_size,
         scale_mul=(args.scale_mul[0], args.scale_mul[1]),
         custom_t_list=args.sample_t_list, sample_limited_t=args.sample_limited_t,
-        omega=args.omega, custom_sample=True, generator=generator, device=device,
+        omega=args.omega, custom_sample=True, collect_aux=interm_aux,
+        collect_interm=args.save_interm, generator=generator, device=device,
     )
+    if interm_aux is not None:
+        save_interm_scales(interm_aux, range(len(interm_aux)), sched, pyramid.n_scales,
+                           args.sample_limited_t, results_folder)
     desc = "sample"
     stamp = str(datetime.datetime.now()).replace(":", "_").replace(" ", "_")
     for i, out in enumerate(outs):

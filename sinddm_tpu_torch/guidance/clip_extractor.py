@@ -206,12 +206,14 @@ def apply_color(x: torch.Tensor, d: ViewDraws) -> torch.Tensor:
 
 
 def augment_views(img: torch.Tensor, d: ViewDraws, idxs: Sequence[int], fill: float = 1.0,
-                  mm_adjoint: bool = True, warp_impl: Optional[str] = None) -> torch.Tensor:
+                  mm_adjoint: bool = True, warp_precision: Optional[str] = None,
+                  warp_impl: Optional[str] = None) -> torch.Tensor:
     """Images [B, H, W, 3] in [0, 1] -> the views of ``d`` [B, V, ch, cw, 3].
     The frame is the image resized to short side 224, long side at most 320."""
     frame = resize_output_size(img.shape[1], img.shape[2])
     m_total = view_matrices(d, idxs, (img.shape[1], img.shape[2]), frame)
-    view = W.warp_homography(img, m_total, frame, fill=fill, mm_adjoint=mm_adjoint, impl=warp_impl)
+    view = W.warp_homography(img, m_total, frame, fill=fill, mm_adjoint=mm_adjoint,
+                             precision=warp_precision, impl=warp_impl)
     return W.clip01(apply_color(W.clip01(view), d))
 
 
@@ -221,7 +223,8 @@ class ClipExtractor:
 
     def __init__(self, model: CLIPModel, n_aug: int = 16, affine_fill: float = 1.0,
                  view_chunk: Optional[int] = 4, mm_adjoint: bool = True,
-                 warp_impl: Optional[str] = None, generator: Optional[torch.Generator] = None):
+                 warp_precision: Optional[str] = None, warp_impl: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
         self.model = model
         self.n_aug = n_aug
         self.affine_fill = affine_fill
@@ -229,6 +232,9 @@ class ClipExtractor:
         # time; None = all at once
         self.view_chunk = view_chunk
         self.mm_adjoint = mm_adjoint
+        # precision of the matrix-product warp (ops/warp.py matmul_precision);
+        # None = true fp32
+        self.warp_precision = warp_precision
         self.warp_impl = warp_impl
         self.generator = generator
 
@@ -264,7 +270,8 @@ class ClipExtractor:
     # -- images --------------------------------------------------------
     def _embed_chunk(self, x01: torch.Tensor, d: ViewDraws, lo: int, hi: int) -> torch.Tensor:
         views = augment_views(x01, d.views(lo, hi), range(lo, hi), self.affine_fill,
-                              mm_adjoint=self.mm_adjoint, warp_impl=self.warp_impl)
+                              mm_adjoint=self.mm_adjoint, warp_precision=self.warp_precision,
+                              warp_impl=self.warp_impl)
         b, c = views.shape[:2]
         embs = self.model.encode_image(clip_normalize(views.reshape((b * c,) + views.shape[2:])))
         return embs.reshape(b, c, -1)

@@ -12,6 +12,7 @@ file.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Mapping, Optional
 
@@ -50,11 +51,16 @@ def config_from_state_dict(sd: Mapping[str, Any]) -> CLIPConfig:
     )
 
 
-def clip_from_state_dict(sd: Mapping[str, Any], cfg: Optional[CLIPConfig] = None, device="cuda") -> CLIPModel:
-    """Frozen fp32 :class:`CLIPModel` on ``device`` from an OpenAI-named
-    state dict (arrays or tensors). Entries the module has no use for
-    (``input_resolution``, ``context_length``, ``vocab_size``) are ignored."""
+def clip_from_state_dict(sd: Mapping[str, Any], cfg: Optional[CLIPConfig] = None, device="cuda",
+                         compute_dtype: Optional[str] = None) -> CLIPModel:
+    """Frozen :class:`CLIPModel` with fp32 parameters on ``device`` from an
+    OpenAI-named state dict (arrays or tensors). ``compute_dtype="bfloat16"``
+    runs the vision tower's matrix products in bf16 (``CLIPConfig``). Entries
+    the module has no use for (``input_resolution``, ``context_length``,
+    ``vocab_size``) are ignored."""
     cfg = cfg or config_from_state_dict(sd)
+    if compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     model = CLIPModel(cfg)
     own = model.state_dict()
     state = {k: torch.tensor(np.asarray(v), dtype=torch.float32).reshape(own[k].shape)
@@ -112,9 +118,10 @@ def clip_from_flax(variables: Mapping[str, Any], cfg: CLIPConfig, device="cuda")
     return clip_from_state_dict(state_dict_from_flax(variables), cfg, device=device)
 
 
-def load_clip(path: str, device="cuda") -> CLIPModel:
-    """Load an OpenAI CLIP checkpoint (TorchScript archive or state dict)."""
-    return clip_from_state_dict(load_torch_state_dict(path), device=device)
+def load_clip(path: str, device="cuda", compute_dtype: Optional[str] = None) -> CLIPModel:
+    """Load an OpenAI CLIP checkpoint (TorchScript archive or state dict);
+    ``compute_dtype="bfloat16"`` for the bf16 vision tower."""
+    return clip_from_state_dict(load_torch_state_dict(path), device=device, compute_dtype=compute_dtype)
 
 
 def find_clip_weights() -> Optional[str]:

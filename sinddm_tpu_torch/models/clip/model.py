@@ -11,10 +11,14 @@ Modules and parameters carry the names of OpenAI's state dict
 (``visual.conv1.weight``, ``visual.transformer.resblocks.0.attn.in_proj_weight``,
 ``token_embedding.weight``, ...), so a checkpoint loads strictly. Images
 are NHWC ``[B, H, W, 3]``, already CLIP-normalised, as in the JAX package.
-Everything runs in fp32: the patch embedding is a matrix product over
-unfolded patches (no cuDNN convolution, hence no TF32), attention is plain
-matmul / softmax, as the JAX package leaves it to XLA. The bf16 tower and
-the ``attn_impl`` experiment switch are not ported yet.
+By default everything runs in fp32: the patch embedding is a matrix product
+over unfolded patches (no cuDNN convolution, hence no TF32), attention is
+plain matmul / softmax, as the JAX package leaves it to XLA.
+``CLIPConfig(compute_dtype="bfloat16")`` runs the vision tower's matrix
+products (patch embedding, projections, attention, MLP) and what lies between
+them in bf16, as flax's ``dtype=bfloat16`` layers do; parameters stay fp32,
+the LayerNorms and the residual stream run in fp32, and the text tower is
+untouched. The ``attn_impl`` experiment switch is not ported.
 """
 
 from __future__ import annotations
@@ -40,10 +44,17 @@ class CLIPConfig:
     transformer_width: int = 512
     transformer_heads: int = 8
     transformer_layers: int = 12
+    # 'bfloat16': the vision tower's matrix products in bf16 with fp32
+    # parameters and fp32 LayerNorms; None / 'float32': all fp32
+    compute_dtype: Optional[str] = None
 
     @property
     def vision_heads(self) -> int:
         return self.vision_width // 64
+
+    @property
+    def vision_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
 VIT_B_32 = CLIPConfig()
@@ -66,13 +77,20 @@ class QuickGELU(nn.Module):
         return x * torch.sigmoid(1.702 * x)
 
 
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A dense layer computed in ``dtype`` (inputs and fp32 parameters cast to
+    it), as a flax ``Dense(dtype=...)``; a no-op cast in fp32."""
+    return nn.functional.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+
+
 class MultiheadAttention(nn.Module):
     """Fused qkv projection + output projection, ``nn.MultiheadAttention``'s
-    parameter names and layout."""
+    parameter names and layout; computed in ``dtype``."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
         self.out_proj = nn.Linear(width, width)
@@ -80,19 +98,23 @@ class MultiheadAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L, W = x.shape
         hd = W // self.heads
-        qkv = nn.functional.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
         q, k, v = (t.reshape(B, L, self.heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
         attn = q @ k.transpose(-1, -2) / math.sqrt(hd)
         if mask is not None:
             attn = attn + mask
         out = torch.softmax(attn, dim=-1) @ v
-        return self.out_proj(out.transpose(1, 2).reshape(B, L, W))
+        return _linear(out.transpose(1, 2).reshape(B, L, W), self.out_proj.weight, self.out_proj.bias, self.dtype)
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    """Pre-LN block; the LayerNorms run on the fp32 residual stream, the
+    attention and MLP in ``dtype``, whose output the residual add widens back."""
+
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attn = MultiheadAttention(width, heads)
+        self.dtype = dtype
+        self.attn = MultiheadAttention(width, heads, dtype)
         self.ln_1 = nn.LayerNorm(width, eps=1e-5)
         self.mlp = nn.Sequential(OrderedDict([
             ("c_fc", nn.Linear(width, width * 4)),
@@ -103,13 +125,15 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask)
-        return x + self.mlp(self.ln_2(x))
+        fc, proj = self.mlp.c_fc, self.mlp.c_proj
+        h = self.mlp.gelu(_linear(self.ln_2(x), fc.weight, fc.bias, self.dtype))
+        return x + _linear(h, proj.weight, proj.bias, self.dtype)
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads) for _ in range(layers)])
+        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)])
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.resblocks:
@@ -170,7 +194,7 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             scale * torch.randn((cfg.image_resolution // ps) ** 2 + 1, width))
         self.ln_pre = nn.LayerNorm(width, eps=1e-5)
-        self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads)
+        self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads, cfg.vision_dtype)
         self.ln_post = nn.LayerNorm(width, eps=1e-5)
         self.proj = nn.Parameter(scale * torch.randn(width, cfg.embed_dim))
 
@@ -180,10 +204,12 @@ class VisionTransformer(nn.Module):
         B, H, W, _ = x.shape
         ps, width = self.cfg.vision_patch_size, self.cfg.vision_width
         hp, wp = H // ps, W // ps
-        # the stride-ps VALID convolution as one matrix product over patches
+        # the stride-ps VALID convolution as one matrix product over patches,
+        # in the tower's compute type, widened to fp32 after
+        dt = self.cfg.vision_dtype
         patches = x[:, : hp * ps, : wp * ps].reshape(B, hp, ps, wp, ps, 3).permute(0, 1, 3, 2, 4, 5)
         kernel = self.conv1.weight.permute(2, 3, 1, 0).reshape(ps * ps * 3, width)
-        x = patches.reshape(B, hp * wp, ps * ps * 3) @ kernel
+        x = (patches.reshape(B, hp * wp, ps * ps * 3).to(dt) @ kernel.to(dt)).float()
         cls = self.class_embedding.expand(B, 1, width)
         x = torch.cat([cls, x], dim=1)
         x = x + interpolate_pos_embedding(self.positional_embedding, H, W, ps)[None]

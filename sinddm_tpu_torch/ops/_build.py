@@ -44,10 +44,14 @@ SIGNATURES = {
         "sinddm_dw_conv5x5_bf16": [_P] * 5 + [_I] * 5 + [_P],
     },
     "warp_sample": {
+        "sinddm_warp_whole_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
+        "sinddm_warp_whole_bwd": [_P] * 3 + [_I] * 6 + [_P],
         "sinddm_warp_win_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
         "sinddm_warp_winx_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
         "sinddm_warp_winb_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
         "sinddm_warp_win_bwd": [_P] * 3 + [_I] * 6 + [_P],
+        "sinddm_warp_win3_fwd": [_P] * 4 + [_F] + [_I] * 6 + [_P],
+        "sinddm_warp_win3_bwd": [_P] * 3 + [_I] * 6 + [_P],
     },
 }
 

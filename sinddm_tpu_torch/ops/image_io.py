@@ -54,3 +54,14 @@ def save_image(img01, path: Union[str, Path], nrow: int = 4) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     Image.fromarray(to_uint8(img01)).save(path)
 
+
+def save_interm_frames(frames, out_dir: Union[str, Path], *, s: int, t_min: int = 0) -> None:
+    """Dump a per-step frame stack in the reference's ``save_interm`` layout:
+    ``frames`` [n_steps, B, H, W, 3] in [-1, 1], t descending (the sampler's
+    order), written as ``output_t-{t:03}_s-{s}.png`` grids under ``out_dir``,
+    t counting down to ``t_min``."""
+    frames = _host(frames)
+    n_steps = frames.shape[0]
+    out_dir = Path(out_dir)
+    for j in range(n_steps):
+        save_image((frames[j] + 1.0) * 0.5, out_dir / f"output_t-{t_min + n_steps - 1 - j:03d}_s-{s}.png")

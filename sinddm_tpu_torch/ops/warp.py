@@ -22,24 +22,37 @@ Three samplers compute the same function:
   both directions (fp32 only), gradient to the image only. It is the plain
   version of the CUDA kernels in :mod:`sinddm_tpu_torch.ops.warp_sample`:
   CPU tensors and the tests take it, a CUDA tensor on the guidance path
-  does not;
-* the kernels themselves (``impl`` ``pallas_win`` / ``pallas_winx`` /
-  ``pallas_winb``, named after the TPU kernels they replace).
+  does not. Its ``precision`` is that of its matrix products on a CUDA
+  device: "highest" true fp32, "high" / "default" TF32, for that call only;
+* the kernels themselves (``impl`` ``pallas`` / ``pallas_win`` /
+  ``pallas_winx`` / ``pallas_winb``, named after the TPU kernels they
+  replace), and ``pallas_win3``, which splits the products into bf16 parts
+  and is about 1e-5 relative off the others; its plain version
+  (:func:`~sinddm_tpu_torch.ops.warp_sample.bilinear_sample_split3`) is
+  ``impl="mm_split3"``.
 
 The JAX module's import-time environment switches are TPU experiment
-hatches; here the implementation is chosen by the ``impl`` argument only.
+hatches; here the implementation is chosen by the ``impl`` argument and the
+precision by the ``precision`` argument only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
 import torch
 
-# impl names of the TPU kernels that have no Hopper kernel yet
-_UNPORTED_IMPLS = ("pallas", "pallas_win3")
-KERNEL_IMPLS = ("pallas_win", "pallas_winx", "pallas_winb")
+# impl name -> entry of ops/warp_sample.py
+KERNEL_IMPLS = {
+    "pallas": "bilinear_sample_pallas",
+    "pallas_win": "bilinear_sample_pallas_win",
+    "pallas_winx": "bilinear_sample_pallas_winx",
+    "pallas_winb": "bilinear_sample_pallas_winb",
+    "pallas_win3": "bilinear_sample_pallas_win3",
+}
+PRECISIONS = ("highest", "high", "default")
 
 
 class _Clip01(torch.autograd.Function):
@@ -94,6 +107,27 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor, fill: float = 0.0) 
     )
 
 
+@contextlib.contextmanager
+def matmul_precision(precision: Optional[str], device: torch.device):
+    """Matrix products on ``device`` inside the block: "highest" (or None) in
+    true fp32, "high" / "default" in TF32 on a CUDA device (the nearest of
+    the card's modes to the TPU's fewer-pass products). The switch is set
+    for the block and restored after it; on the CPU nothing changes, as on
+    JAX's CPU backend."""
+    name = precision or "highest"
+    if name not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}: one of {PRECISIONS}")
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = name != "highest"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def _soft_onehots(coords: torch.Tensor, H: int, W: int):
     """Flattened A [N, H] / B [N, W] hat-function tap matrices and the
     in-bounds tap mass ``cover`` [N]: A[q, y] = relu(1 - |y_q - y|)."""
@@ -108,15 +142,17 @@ def _soft_onehots(coords: torch.Tensor, H: int, W: int):
 
 class _BilinearSampleMM(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, img, coords, fill):
+    def forward(ctx, img, coords, fill, precision):
         H, W, C = img.shape
         A, B, cover = _soft_onehots(coords, H, W)
         # one [N, H] x [H, W] product a channel, then the column taps as a
         # product and a sum over W
-        val = torch.stack([((A @ img[:, :, c]) * B).sum(-1) for c in range(C)], dim=-1)
+        with matmul_precision(precision, img.device):
+            val = torch.stack([((A @ img[:, :, c]) * B).sum(-1) for c in range(C)], dim=-1)
         out = val + (1.0 - cover)[:, None] * fill
         ctx.save_for_backward(coords)
         ctx.hw = (H, W)
+        ctx.precision = precision
         return out.reshape(coords.shape[:-1] + (C,))
 
     @staticmethod
@@ -126,22 +162,26 @@ class _BilinearSampleMM(torch.autograd.Function):
         C = ct.shape[-1]
         A, B, _ = _soft_onehots(coords, H, W)
         ct_flat = ct.reshape(-1, C)
-        ct_img = torch.stack([(A * ct_flat[:, c : c + 1]).T @ B for c in range(C)], dim=-1)
-        return ct_img, None, None
+        with matmul_precision(ctx.precision, ct.device):
+            ct_img = torch.stack([(A * ct_flat[:, c : c + 1]).T @ B for c in range(C)], dim=-1)
+        return ct_img, None, None, None
 
 
-def bilinear_sample_mm(img: torch.Tensor, coords: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+def bilinear_sample_mm(img: torch.Tensor, coords: torch.Tensor, fill: float = 0.0,
+                       precision: Optional[str] = None) -> torch.Tensor:
     """:func:`bilinear_sample` by matrix products, forward and adjoint:
 
         forward:  out[q, c] = sum_X B[q, X] (A @ img[:, :, c])[q, X] + fill (1 - cover[q])
         adjoint:  ct_img[:, :, c] = (A * ct[:, c])^T @ B
 
-    fp32-exact up to summation order against the gather. NOT differentiable
-    in ``coords`` or ``fill`` (their gradients are None): guidance
-    differentiates the image only, the homographies are random draws."""
+    fp32-exact up to summation order against the gather at ``precision``
+    "highest" (None); "high" / "default" run the products in TF32 on a CUDA
+    device (:func:`matmul_precision`). NOT differentiable in ``coords`` or
+    ``fill`` (their gradients are None): guidance differentiates the image
+    only, the homographies are random draws."""
     if img.dtype != torch.float32 or coords.dtype != torch.float32:
         raise TypeError(f"bilinear_sample_mm is fp32 only, got {img.dtype}, {coords.dtype}")
-    return _BilinearSampleMM.apply(img, coords, float(fill))
+    return _BilinearSampleMM.apply(img, coords, float(fill), precision)
 
 
 def homography_coords(matrix: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -168,6 +208,7 @@ def warp_homography(
     out_hw: Tuple[int, int],
     fill: float = 0.0,
     mm_adjoint: bool = False,
+    precision: Optional[str] = None,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Warp by out->in homographies: img [H, W, C] with matrix [3, 3] gives
@@ -175,36 +216,37 @@ def warp_homography(
 
     ``mm_adjoint=True`` is the guidance path (gradient to the image only, none
     to ``matrix``): a CUDA image goes through the ``pallas_winx`` kernel, a
-    CPU image through :func:`bilinear_sample_mm`. ``impl`` picks explicitly:
-    ``"mm"`` the matrix-product version, ``"pallas_win"`` / ``"pallas_winx"``
-    / ``"pallas_winb"`` a kernel of :mod:`~sinddm_tpu_torch.ops.warp_sample`
-    (on a CPU tensor its plain version). Without either, the 4-tap gather
-    runs and ``matrix`` gets a gradient too.
+    CPU image through :func:`bilinear_sample_mm` at ``precision``. ``impl``
+    picks explicitly: ``"mm"`` the matrix-product version, ``"mm_split3"``
+    the matrix-product version of ``pallas_win3``'s split arithmetic,
+    ``"pallas"`` / ``"pallas_win"`` / ``"pallas_winx"`` / ``"pallas_winb"`` /
+    ``"pallas_win3"`` a kernel of :mod:`~sinddm_tpu_torch.ops.warp_sample`
+    (on a CPU tensor its plain version; the kernels ignore ``precision``).
+    Without either, the 4-tap gather runs and ``matrix`` gets a gradient too.
     """
     batched = img.ndim == 4
     if batched != (matrix.ndim == 4):
         raise ValueError(f"img {tuple(img.shape)} does not go with matrix {tuple(matrix.shape)}")
     src = homography_coords(matrix, out_hw)
-    if impl in _UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"warp impl {impl!r} has no Hopper kernel yet: see ROADMAP.md, 'TPU kernels to port'")
     if impl is None and mm_adjoint and img.is_cuda:
         impl = "pallas_winx"
     if impl in KERNEL_IMPLS:
         from sinddm_tpu_torch.ops import warp_sample
 
-        fn = {
-            "pallas_win": warp_sample.bilinear_sample_pallas_win,
-            "pallas_winx": warp_sample.bilinear_sample_pallas_winx,
-            "pallas_winb": warp_sample.bilinear_sample_pallas_winb,
-        }[impl]
-        return fn(img, src, fill)
-    if impl not in (None, "mm"):
+        return getattr(warp_sample, KERNEL_IMPLS[impl])(img, src, fill)
+    if impl == "mm_split3":
+        from sinddm_tpu_torch.ops.warp_sample import bilinear_sample_split3
+
+        one = lambda i, c: bilinear_sample_split3(i, c, fill)  # noqa: E731
+    elif impl not in (None, "mm"):
         raise ValueError(f"unknown warp impl {impl!r}")
-    one = bilinear_sample_mm if (mm_adjoint or impl == "mm") else bilinear_sample
+    elif mm_adjoint or impl == "mm":
+        one = lambda i, c: bilinear_sample_mm(i, c, fill, precision)  # noqa: E731
+    else:
+        one = lambda i, c: bilinear_sample(i, c, fill)  # noqa: E731
     if not batched:
-        return one(img, src, fill)
-    return torch.stack([one(img[b], src[b], fill) for b in range(img.shape[0])])
+        return one(img, src)
+    return torch.stack([one(img[b], src[b]) for b in range(img.shape[0])])
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """The port's CLI: ``--mode sample --device cpu`` on a tiny synthetic image
-writes the JAX CLI's ``final_samples/`` layout; shared flags keep the JAX
+writes the JAX CLI's ``final_samples/`` layout (and, with ``--save_interm``,
+its ``interm_samples_scale_{s}/`` frames, pixel for pixel as the JAX
+package's ``save_interm_frames`` writes them); shared flags keep the JAX
 CLI's defaults."""
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from sinddm_tpu.cli import build_parser as jax_build_parser
@@ -37,6 +40,36 @@ def test_sample_mode_writes_final_samples(dataset, tmp_path, with_checkpoint):
     (unbatched,) = (tmp_path / "tiny").glob("final_samples_unbatched_sample_*")
     assert sorted(p.name for p in unbatched.iterdir()) == ["out_b0.png", "out_b1.png"]
     assert (dataset / "scale_2" / "tiny.png").exists()  # pyramid saved beside the image
+
+
+def test_sample_mode_save_interm_writes_every_step(dataset, tmp_path):
+    argv = [
+        "--mode", "sample", "--device", "cpu", "--dataset_folder", str(dataset),
+        "--image_name", "tiny.png", "--results_folder", str(tmp_path), "--scope", "tiny",
+        "--dim", "16", "--timesteps", "10", "--sample_batch_size", "1", "--sample_t_list", "2", "3",
+        "--save_interm",
+    ]
+    cli.run(cli.build_parser().parse_args(argv))
+    for s, n_steps in ((0, 10), (1, 2), (2, 3)):
+        names = sorted(p.name for p in (tmp_path / "tiny" / f"interm_samples_scale_{s}").iterdir())
+        assert names == [f"output_t-{t:03d}_s-{s}.png" for t in range(n_steps)]
+
+
+def test_save_interm_frames_matches_jax(tmp_path):
+    from PIL import Image as PILImage
+
+    from sinddm_tpu.ops.image_io import save_interm_frames as jax_save_interm_frames
+    from sinddm_tpu_torch.ops.image_io import save_interm_frames
+
+    frames = np.random.default_rng(1).uniform(-1.1, 1.1, (3, 2, 5, 6, 3)).astype(np.float32)
+    save_interm_frames(torch.tensor(frames), tmp_path / "ours", s=1, t_min=4)
+    jax_save_interm_frames(frames, tmp_path / "theirs", s=1, t_min=4)
+    names = sorted(p.name for p in (tmp_path / "theirs").iterdir())
+    assert names == ["output_t-004_s-1.png", "output_t-005_s-1.png", "output_t-006_s-1.png"]
+    assert sorted(p.name for p in (tmp_path / "ours").iterdir()) == names
+    for n in names:
+        np.testing.assert_array_equal(np.asarray(PILImage.open(tmp_path / "ours" / n)),
+                                      np.asarray(PILImage.open(tmp_path / "theirs" / n)))
 
 
 def test_shared_flags_keep_the_jax_defaults():

@@ -5,6 +5,13 @@
   ``clip_from_flax``: image and text embeddings atol 1e-4, a non-square
   input (position embedding resized bicubically, flattened transposed), the
   image gradient atol 1e-4;
+* the bf16 vision tower (``compute_dtype="bfloat16"``) against the JAX
+  tower with the same setting: image embeddings atol 2.5e-2 (max |embedding|
+  ~2.6) and image gradient atol 3e-2 (max ~1.7) -- one-ulp bf16 rounding
+  differences (the two frameworks round the same products, but a sum of
+  another order flips a rounding now and then) carried through the tower
+  reach ~1e-2, as far as bf16 lies from fp32; the text tower stays fp32,
+  atol 1e-4;
 * the bicubic resize matrix against ``jax.image.resize``, atol 1e-6;
 * a torch-layout state dict saved to disk loads through ``load_clip``.
 """
@@ -105,6 +112,30 @@ def test_text_embedding_and_tokens_match_jax(towers):
     torch.testing.assert_close(logits_t, logits.T)
 
 
+def test_bf16_vision_tower_matches_jax(towers):
+    jcfg, tcfg = _cfgs(dataclasses.replace(jmodel.tiny_clip_config(), compute_dtype="bfloat16"))
+    jmod = jmodel.CLIPModel(jcfg)
+    _, variables, tmod32 = towers
+    tmod = clip_from_flax(variables, tcfg, device="cpu")
+    assert tmod.cfg.vision_dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in tmod.parameters())
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, (2, 32, 48, 3)).astype(np.float32)
+    tgt = rng.standard_normal((2, 32)).astype(np.float32)
+    tx = torch.tensor(x, requires_grad=True)
+    ours = tmod.encode_image(tmodel.clip_normalize(tx))
+    assert ours.dtype == torch.float32
+    (ours * torch.tensor(tgt)).sum().backward()
+    jfn = lambda v: jmod.apply(variables, jmodel.clip_normalize(v), method=jmod.encode_image)  # noqa: E731
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(jfn(jnp.asarray(x))), atol=2.5e-2)
+    g = jax.grad(lambda v: jnp.sum(jfn(v) * tgt))(jnp.asarray(x))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(g), atol=3e-2)
+    with torch.no_grad():  # bf16 really ran: the fp32 tower is 1e-5 off JAX's fp32, this 1e-3 and more
+        assert (ours - tmod32.encode_image(tmodel.clip_normalize(torch.tensor(x)))).abs().max() > 1e-3
+        toks = tokenize(TEXTS[:2])
+        text = tmod.encode_text(torch.from_numpy(toks).long())
+    np.testing.assert_allclose(text.numpy(), np.asarray(jmod.apply(variables, jnp.asarray(toks), method=jmod.encode_text)), atol=1e-4)
+
+
 @pytest.mark.parametrize("n_in,n_out", [(7, 9), (7, 10), (4, 6), (4, 3), (7, 7)])
 def test_bicubic_resize_matrix_matches_jax_image_resize(n_in, n_out):
     eye = jnp.eye(n_in, dtype=jnp.float32)
@@ -130,6 +161,7 @@ def test_state_dict_round_trip_and_load_clip(tmp_path):
     torch.save({k: torch.tensor(v) for k, v in sd.items()}, path)
     tmod = load_clip(str(path), device="cpu")
     assert config_from_state_dict(sd) == _cfgs(cli_tiny_clip_config())[1]
+    assert load_clip(str(path), device="cpu", compute_dtype="bfloat16").cfg.compute_dtype == "bfloat16"
     variables = {"params": jax.tree.map(np.asarray, convert_state_dict(sd, jcfg))}
     x = np.random.default_rng(3).uniform(-1, 1, (1, 32, 40, 3)).astype(np.float32)
     with torch.no_grad():

@@ -90,15 +90,25 @@ def test_colour_pipeline_matches_jax():
     assert (True, False) in seen  # the draws exercise the jitter branch
 
 
-def test_views_match_jax():
+def _views_match_jax(warp_precision):
     kcs, kas = _keys(2)
     d = view_draws_from_keys(kcs, kas)
     imgs = np.random.default_rng(1).uniform(0, 1, (B,) + SRC_HW + (3,)).astype(np.float32)
-    ours = tce.augment_views(torch.tensor(imgs), d, range(N_AUG), fill=1.0)
+    ours = tce.augment_views(torch.tensor(imgs), d, range(N_AUG), fill=1.0, warp_precision=warp_precision)
     assert ours.shape == (B, N_AUG) + FRAME + (3,)
     for b in range(B):
-        theirs = jce.augment_views_subset(kcs[b], kas[b], jnp.arange(N_AUG), jnp.asarray(imgs[b]), fill=1.0, mm_adjoint=True)
+        theirs = jce.augment_views_subset(kcs[b], kas[b], jnp.arange(N_AUG), jnp.asarray(imgs[b]), fill=1.0,
+                                          mm_adjoint=True, warp_precision=warp_precision)
         np.testing.assert_allclose(ours[b].numpy(), np.asarray(theirs), atol=1e-4)
+
+
+def test_views_match_jax():
+    _views_match_jax(None)
+
+
+def test_views_match_jax_at_warp_precision_high():
+    """``warp_precision`` acts on the matrix-product warp only on a CUDA device."""
+    _views_match_jax("high")
 
 
 def test_text_embeddings_match_jax(towers):

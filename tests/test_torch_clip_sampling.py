@@ -10,8 +10,17 @@ and handed to the port. Final x: atol 1e-3 for all but 0.5% of the elements,
 5e-2 for every element (branch edges of the colour pipeline, see
 ``assert_close_but_for_branch_flips``); masks equal up to 0.5% of the pixels.
 
+``clip_roi`` the same way: two ascent iterations on a 12x16 box (views of
+224x298, as on the card) with the JAX draws, scores rtol 2e-3; the whole
+``clip_roi_sampling`` (ascent, paste, 3 denoising steps with the JAX noise)
+likewise. The ascent takes steps of ~0.3 normalised by the gradient's norm,
+so the few flipped gradient elements of the first step move the whole second
+step a little: the patch within 1e-3 for all but 3% of the elements and
+within 2e-2 everywhere.
+
 Also: ``_n_guided_steps``, the walk-level plumbing of ``clip_sampling`` (carry
-across scales, ``n_guided``), and the CLI on the CPU with a tiny state dict.
+across scales, ``n_guided``), and the CLI on the CPU with a tiny state dict,
+``--save_interm`` and ``--mode clip_roi`` included.
 """
 
 import jax
@@ -22,7 +31,9 @@ import torch
 from PIL import Image
 
 from clip_sd_util import make_torch_clip_state_dict
+from sinddm_tpu.apps.clip_apps import _clip_roi_ascent as jax_clip_roi_ascent
 from sinddm_tpu.apps.clip_apps import _n_guided_steps as jax_n_guided_steps
+from sinddm_tpu.apps.clip_apps import clip_roi_sampling as jax_clip_roi_sampling
 from sinddm_tpu.diffusion.core import sample_via_scale as jax_sample_via_scale
 from sinddm_tpu.guidance import clip_extractor as jce
 from sinddm_tpu.guidance import clip_guidance as jcg
@@ -30,7 +41,14 @@ from sinddm_tpu.models import SinDDMNet as FlaxSinDDMNet
 from sinddm_tpu.models.clip.model import CLIPConfig as JaxCLIPConfig
 from sinddm_tpu.schedules import make_schedules as jax_make_schedules
 from sinddm_tpu_torch import cli
-from sinddm_tpu_torch.apps.clip_apps import NO_WEIGHTS_MESSAGE, _n_guided_steps, clip_mode_config, clip_sampling
+from sinddm_tpu_torch.apps.clip_apps import (
+    NO_WEIGHTS_MESSAGE,
+    _clip_roi_ascent,
+    _n_guided_steps,
+    clip_mode_config,
+    clip_roi_sampling,
+    clip_sampling,
+)
 from sinddm_tpu_torch.diffusion.core import sample_via_scale
 from sinddm_tpu_torch.guidance import clip_extractor as tce
 from sinddm_tpu_torch.guidance import clip_guidance as tcg
@@ -152,6 +170,75 @@ def test_clip_sampling_walk_plumbing(mode):
         np.testing.assert_array_equal(outs[0][1].numpy(), pyr.images[1])
 
 
+ROI = (5, 8, 12, 16)  # y x h w in the tiny pyramid's 48x64 finest image: views of 224x298
+ROI_TOL, ROI_SHARE, ROI_WORST = 1e-3, 0.03, 2e-2
+
+
+@pytest.fixture(scope="module")
+def roi_setup():
+    """One JAX extractor for both clip_roi tests: its jitted ascent (static in
+    the extractor, the iteration count and the strength) compiles once."""
+    jmod, variables, tmod = guidance_towers(seed=8)
+    jex = jce.ClipExtractor(jmod, variables, n_aug=N_AUG, view_chunk=None)
+    tex = tce.ClipExtractor(tmod, n_aug=N_AUG, view_chunk=1)
+    return jex, tex, _tiny_pyramid()
+
+
+def _ascent_draws(ka, n_iters, n_templates):
+    return [loss_draws_from_key(k, B, N_AUG, n_templates) for k in jax.random.split(ka, n_iters)]
+
+
+def test_clip_roi_ascent_matches_jax(roi_setup):
+    jex, tex, pyr = roi_setup
+    embeds = jex.get_text_embedding("fire", jce.get_augmentations_template("lr"))
+    y, x, h, w = ROI
+    patch = np.broadcast_to(pyr.images[-1][None], (B,) + pyr.images[-1].shape)[:, y : y + h, x : x + w]
+    key = jax.random.PRNGKey(41)
+    jp, jscores, jframes = jax_clip_roi_ascent(jex, jnp.asarray(patch), embeds, jex.variables, key, 2, 0.1,
+                                               collect_interm=True)
+    draws = _ascent_draws(key, 2, embeds.shape[0])
+    tp, tscores, tframes = _clip_roi_ascent(tex, torch.tensor(np.ascontiguousarray(patch)), torch.tensor(np.asarray(embeds)),
+                                            2, 0.1, collect_interm=True, draw_fn=lambda b, n: draws.pop(0))
+    assert not draws and tscores.shape == (2,) and tframes.shape == (2, B, h, w, 3)
+    np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores), rtol=2e-3)
+    np.testing.assert_array_equal(tframes[0].numpy(), patch)
+    assert_close_but_for_branch_flips(tframes[1].numpy(), jframes[1], ROI_TOL, ROI_SHARE, ROI_WORST)
+    assert_close_but_for_branch_flips(tp.numpy(), jp, ROI_TOL, ROI_SHARE, ROI_WORST)
+    assert float(tp.abs().max()) <= 1.0 and not torch.equal(tp, tframes[1])
+
+
+def test_clip_roi_sampling_matches_jax(roi_setup):
+    """Ascent, paste and the 3-step denoise at the finest scale, with the JAX
+    draws and noise re-derived from its key (split into the ascent's and the
+    denoise's)."""
+    jex, tex, pyr = roi_setup
+    params = random_flax_params(dim=16, seed=7)
+    sched_j = jax_make_schedules(timesteps=10, scale_losses=[0.35, 0.2], n_scales=3)
+    sched_t = make_schedules(timesteps=10, scale_losses=[0.35, 0.2], n_scales=3, device="cpu")
+    key = jax.random.PRNGKey(43)
+    kw = dict(text_input="fire", strength=0.1, sample_batch_size=B, num_clip_iters=2, num_denoising_steps=3,
+              clip_roi_bb=ROI, collect_interm=True)
+    jfinal, jscores, jinterm = jax_clip_roi_sampling(FlaxSinDDMNet(dim=16), params, sched_j, pyr, jex, key, **kw)
+
+    _, ka, ks = jax.random.split(key, 3)
+    draws = _ascent_draws(ka, 2, len(jce.get_augmentations_template("lr")))
+    shape = (B,) + pyr.sizes_hw[-1] + (3,)
+    k, kn = jax.random.split(ks)
+    noise = [np.asarray(jax.random.normal(kn, shape, jnp.float32))]
+    for _ in range(3):
+        k, sub = jax.random.split(k)
+        noise.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
+    final, scores, interm = clip_roi_sampling(
+        denoiser_from_flax(params, device="cpu"), sched_t, pyr, tex, draw_fn=lambda b, n: draws.pop(0),
+        noise_fn=lambda shp: torch.tensor(noise.pop(0)), device="cpu", **kw)
+    assert not draws and not noise
+    np.testing.assert_allclose(scores.numpy(), np.asarray(jscores), rtol=2e-3)
+    assert tuple(interm["ascent"].shape) == (2, B, ROI[2], ROI[3], 3) and tuple(interm["denoise"].shape) == (3,) + shape
+    assert_close_but_for_branch_flips(interm["denoise"].numpy(), jinterm["denoise"], ROI_TOL, ROI_SHARE, ROI_WORST)
+    assert_close_but_for_branch_flips(final.numpy(), jfinal, ROI_TOL, ROI_SHARE, ROI_WORST)
+    assert final.shape == shape and torch.isfinite(final).all() and float(final.abs().max()) <= 1.0
+
+
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     folder = tmp_path_factory.mktemp("torch_clip_cli_data")
@@ -180,6 +267,26 @@ def test_cli_clip_mode_writes_files(dataset, tmp_path, mode, extra):
     assert (tmp_path / "tiny" / "clip_score.png").exists() or (tmp_path / "tiny" / "clip_score.npy").exists()
 
 
+def test_cli_clip_roi_writes_the_jax_file_names(dataset, tmp_path, monkeypatch):
+    """Three ascent iterations in place of the CLI's 100 (each ~0.5 s on one
+    CPU thread); the file names are the JAX CLI's."""
+    from sinddm_tpu_torch.apps import clip_apps
+
+    assert (clip_apps.ROI_ASCENT_ITERS, clip_apps.ROI_STRENGTH, clip_apps.ROI_DENOISING_STEPS) == (100, 0.1, 3)
+    monkeypatch.setattr(clip_apps, "ROI_ASCENT_ITERS", 3)
+    outs = cli.run(cli.build_parser().parse_args(
+        _argv(dataset, tmp_path, "clip_roi")
+        + ["--clip_weights", str(dataset / "clip_sd.pt"), "--target_roi", "10", "12", "24", "32", "--save_interm"]))
+    assert [tuple(o.shape) for o in outs] == [(1, 96, 128, 3)]
+    assert torch.isfinite(outs[0]).all() and float(outs[0].abs().max()) <= 1.0
+    run = tmp_path / "tiny"
+    assert sorted(p.name for p in (run / "final_samples").iterdir()) == ["clip_roi_fire.png"]
+    assert sorted(p.name for p in (run / "interm_samples_clip_roi").iterdir()) == sorted(f"iter_{i}.png" for i in range(3))
+    assert sorted(p.name for p in (run / "interm_samples_scale_2").iterdir()) == [f"output_t-{t:03d}_s-2.png" for t in range(3)]
+    with pytest.raises(SystemExit, match="target_roi"):
+        cli.run(cli.build_parser().parse_args(_argv(dataset, tmp_path, "clip_roi") + ["--clip_weights", str(dataset / "clip_sd.pt")]))
+
+
 def test_cli_clip_mode_stops_without_weights(dataset, tmp_path, monkeypatch):
     monkeypatch.delenv("SINDDM_CLIP_WEIGHTS", raising=False)
     monkeypatch.setenv("HOME", str(tmp_path))
@@ -206,7 +313,14 @@ def test_cli_clip_flags_keep_the_jax_defaults():
 
     ours = vars(cli.build_parser().parse_args(["--mode", "clip_content"]))
     theirs = vars(jax_build_parser().parse_args(["--mode", "clip_content"]))
-    for flag in ("clip_text", "strength", "fill_factor", "clip_weights", "n_aug", "clip_view_chunk", "warp_impl"):
+    for flag in ("clip_text", "strength", "fill_factor", "clip_weights", "n_aug", "clip_view_chunk", "warp_impl",
+                 "clip_dtype", "warp_precision", "target_roi", "interactive", "save_interm"):
         assert ours[flag] == theirs[flag], flag
+    jax_actions = {a.dest: a for a in jax_build_parser()._actions}
+    for a in cli.build_parser()._actions:
+        if a.dest in ("clip_dtype", "warp_precision", "target_roi", "interactive", "mode"):
+            assert a.choices == jax_actions[a.dest].choices or (a.dest == "mode" and set(a.choices) < set(jax_actions["mode"].choices)), a.dest
+    assert {"pallas", "pallas_win", "pallas_winx", "pallas_winb", "mm"} == set(
+        next(a for a in cli.build_parser()._actions if a.dest == "warp_impl").choices)
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--mode", "clip_content", "--n_aug", "0"])

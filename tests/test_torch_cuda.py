@@ -10,9 +10,11 @@ counts that are not multiples of the kernels' chunks and tiles); the full
 dim=160 shapes of the sampling path are checked by ``chip_smoke.py``.
 Tolerances as there: fp32 atol 2e-4 + rtol 2e-4 (sum order); bf16 max
 error <= 2e-2 of max |plain|; dw against float64 atol 1e-5; the warp kernels
-against their plain version (``bilinear_sample_mm``): value atol 1e-5, image
-gradient 1e-5 of max |gradient| (the adjoint's atomics sum in an order that
-changes from run to run).
+against their plain version (``bilinear_sample_mm``; for win3
+``bilinear_sample_split3``): value atol 1e-5, image gradient 1e-5 of max
+|gradient| (the adjoints' atomics sum in an order that changes from run to
+run); win3 against the exact warp at the JAX package's bounds, value 3e-4
+and gradient 7e-5 of max |gradient|.
 """
 
 import pytest
@@ -22,6 +24,9 @@ from sinddm_tpu_torch.ops import conv_block as cb
 from sinddm_tpu_torch.ops import dw_conv as dw
 from sinddm_tpu_torch.ops import warp_sample as ws
 from sinddm_tpu_torch.ops.warp import bilinear_sample_mm, warp_homography
+
+WARP_CASES = [(1, 19, 23, 3, 1, 17, 13, 0.5), (2, 21, 25, 3, 3, 26, 30, 0.0), (1, 300, 23, 3, 2, 17, 13, 0.5),
+              (3, 1, 1, 1, 2, 5, 7, 1.0), (2, 7, 40, 5, 1, 1, 1, 0.25), (1, 33, 9, 4, 4, 12, 3, 1.0)]
 
 pytestmark = pytest.mark.cuda
 
@@ -121,32 +126,55 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     assert (cb.launches, dw.launches) == (0, 0)
 
 
-@pytest.mark.parametrize("variant", ["win", "winx", "winb"])
-@pytest.mark.parametrize(
-    "b,h,w,c,v,oh,ow,fill",
-    [(1, 19, 23, 3, 1, 17, 13, 0.5), (2, 21, 25, 3, 3, 26, 30, 0.0), (1, 300, 23, 3, 2, 17, 13, 0.5),
-     (3, 1, 1, 1, 2, 5, 7, 1.0), (2, 7, 40, 5, 1, 1, 1, 0.25), (1, 33, 9, 4, 4, 12, 3, 1.0)],
-)
+def _warp_case(gen, b, h, w, c, v, oh, ow):
+    img = torch.rand((b, h, w, c), generator=gen, device="cuda")
+    span = torch.tensor([w, h], device="cuda", dtype=torch.float32)
+    coords = (torch.rand((b, v, oh, ow, 2), generator=gen, device="cuda") * 1.5 - 0.2) * span
+    return img, coords, torch.randn((b, v, oh, ow, c), generator=gen, device="cuda")
+
+
+def _value_and_grad(fn, img, coords, fill, ct):
+    x = img.clone().requires_grad_(True)
+    out = fn(x, coords, fill)
+    return out, torch.autograd.grad(out, x, ct)[0]
+
+
+def _per_image(one, img, coords, fill, ct):
+    return _value_and_grad(lambda x, c, f: torch.stack([one(x[i], c[i], f) for i in range(x.shape[0])]),
+                           img, coords, fill, ct)
+
+
+@pytest.mark.parametrize("variant", ["whole", "win", "winx", "winb"])
+@pytest.mark.parametrize("b,h,w,c,v,oh,ow,fill", WARP_CASES)
 def test_warp_kernels_match_plain(gen, variant, b, h, w, c, v, oh, ow, fill):
     """Value and image gradient; coords span -0.2 .. 1.3 of the source, so
     taps fall inside, on the border and outside. Sources of one pixel, of
     300 rows (more than the TPU kernels take), channel counts other than 3."""
-    img = torch.rand((b, h, w, c), generator=gen, device="cuda")
-    span = torch.tensor([w, h], device="cuda", dtype=torch.float32)
-    coords = (torch.rand((b, v, oh, ow, 2), generator=gen, device="cuda") * 1.5 - 0.2) * span
-    ct = torch.randn((b, v, oh, ow, c), generator=gen, device="cuda")
+    img, coords, ct = _warp_case(gen, b, h, w, c, v, oh, ow)
     ws.reset_launches()
-    x = img.clone().requires_grad_(True)
-    out = ws.FORWARDS[variant](x, coords, fill)
-    (grad,) = torch.autograd.grad(out, x, ct)
-    assert ws.launches == {**dict.fromkeys(ws.launches, 0), f"{variant}_fwd": 1, "win_bwd": 1}
-    xr = img.clone().requires_grad_(True)
-    ref = torch.stack([bilinear_sample_mm(xr[i], coords[i], fill) for i in range(b)])
-    (gref,) = torch.autograd.grad(ref, xr, ct)
+    out, grad = _value_and_grad(ws.FORWARDS[variant], img, coords, fill, ct)
+    assert ws.launches == {**dict.fromkeys(ws.launches, 0), f"{variant}_fwd": 1, f"{ws.ADJOINT[variant]}_bwd": 1}
+    ref, gref = _per_image(bilinear_sample_mm, img, coords, fill, ct)
     torch.cuda.synchronize()
     assert out.shape == (b, v, oh, ow, c) and out.is_cuda
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     assert (grad - gref).abs().max().item() <= 1e-5 * max(gref.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("b,h,w,c,v,oh,ow,fill", WARP_CASES)
+def test_win3_kernels_match_split3_plain_and_stay_near_exact(gen, b, h, w, c, v, oh, ow, fill):
+    img, coords, ct = _warp_case(gen, b, h, w, c, v, oh, ow)
+    ws.reset_launches()
+    out, grad = _value_and_grad(ws.bilinear_sample_pallas_win3, img, coords, fill, ct)
+    assert ws.launches == {**dict.fromkeys(ws.launches, 0), "win3_fwd": 1, "win3_bwd": 1}
+    ref, gref = _per_image(ws.bilinear_sample_split3, img, coords, fill, ct)
+    exact, gexact = _per_image(bilinear_sample_mm, img, coords, fill, ct)
+    torch.cuda.synchronize()
+    g_max = max(gref.abs().max().item(), 1.0)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert (grad - gref).abs().max().item() <= 1e-5 * g_max
+    torch.testing.assert_close(out, exact, atol=3e-4, rtol=0)
+    assert (grad - gexact).abs().max().item() <= 7e-5 * g_max
 
 
 def test_warp_unbatched_far_coords_and_dispatch(gen):
@@ -155,14 +183,34 @@ def test_warp_unbatched_far_coords_and_dispatch(gen):
     guidance path through the winx kernel."""
     img = torch.rand((11, 14, 3), generator=gen, device="cuda")
     coords = torch.tensor([[-1e9, 3.0], [5.0, 1e9], [float("inf"), 2.0], [-1.0, -1.0], [14.0, 11.0]], device="cuda")
-    for fn in ws.FORWARDS.values():
+    for fn in (*ws.FORWARDS.values(), ws.bilinear_sample_pallas_win3):
         out = fn(img, coords, 0.75)
         assert out.shape == (5, 3) and torch.equal(out, torch.full_like(out, 0.75))
     m = torch.tensor([[0.9, 0.05, 1.0], [-0.04, 1.1, -2.0], [1e-4, -2e-4, 1.0]], device="cuda")
     ws.reset_launches()
     out = warp_homography(img, m, (9, 12), fill=1.0, mm_adjoint=True)
     assert ws.launches["winx_fwd"] == 1
-    torch.testing.assert_close(out, warp_homography(img, m, (9, 12), fill=1.0, impl="mm"), atol=1e-5, rtol=0)
+    plain = warp_homography(img, m, (9, 12), fill=1.0, impl="mm")
+    torch.testing.assert_close(out, plain, atol=1e-5, rtol=0)
+    for impl, entry, tol in (("pallas", "whole_fwd", 1e-5), ("pallas_win3", "win3_fwd", 3e-4)):
+        ws.reset_launches()
+        torch.testing.assert_close(warp_homography(img, m, (9, 12), fill=1.0, impl=impl), plain, atol=tol, rtol=0)
+        assert ws.launches[entry] == 1
+
+
+def test_mm_precision_is_scoped_to_the_call(gen):
+    """'high' runs the matrix-product warp in TF32 (close to fp32, not equal)
+    and leaves the global switch as it found it."""
+    img = torch.rand((40, 52, 3), generator=gen, device="cuda")
+    coords = torch.rand((30, 20, 2), generator=gen, device="cuda") * torch.tensor([52.0, 40.0], device="cuda")
+    ct = torch.randn((30, 20, 3), generator=gen, device="cuda")
+    exact, g_exact = _value_and_grad(bilinear_sample_mm, img, coords, 0.0, ct)
+    before = torch.backends.cuda.matmul.allow_tf32
+    high, g_high = _value_and_grad(lambda x, c, f: bilinear_sample_mm(x, c, f, "high"), img, coords, 0.0, ct)
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    torch.testing.assert_close(high, exact, atol=5e-3, rtol=0)
+    torch.testing.assert_close(g_high, g_exact, atol=1e-2, rtol=0)
+    assert not torch.equal(high, exact)
 
 
 def test_warp_wrappers_raise_instead_of_falling_back(gen):

@@ -7,6 +7,13 @@
   replaces, run in interpret mode as ``tests/test_pallas_warp.py`` runs them:
   value atol 1e-5, image gradient atol 1e-4; fills 0 / 0.5, out-of-bounds
   coordinates, batched views, the tall-source and rotation cases.
+* the split-bf16x3 entry ``bilinear_sample_pallas_win3`` (on the CPU its plain
+  version ``bilinear_sample_split3``) against the JAX win3 in interpret mode:
+  value and image gradient atol 1e-5 (the same bf16 splits, fp32 sums in
+  another order); against the exact gather at the JAX test's bounds (value
+  3e-4, gradient 2e-3), and never equal to the exact warp.
+* ``precision`` of the matrix-product warp: every setting gives the JAX
+  package's values and gradients on the CPU, where it changes nothing.
 * matrix builders and colour ops: atol 1e-6 (the perspective matrix, a
   product with an inverse, atol 1e-5 + rtol 1e-5; colour-op gradients 1e-4).
 """
@@ -23,6 +30,7 @@ from sinddm_tpu_torch.ops import warp as tw
 from sinddm_tpu_torch.ops import warp_sample as ws
 
 JAX_KERNELS = {
+    "whole": jpw.bilinear_sample_pallas,
     "win": jpw.bilinear_sample_pallas_win,
     "winx": jpw.bilinear_sample_pallas_winx,
     "winb": jpw.bilinear_sample_pallas_winb,
@@ -79,7 +87,8 @@ def test_mm_matches_jax_and_gives_no_coords_gradient(fill):
         tw.bilinear_sample_mm(torch.tensor(img).double(), torch.tensor(coords).double())
 
 
-@pytest.mark.parametrize("variant,fill", [("win", 0.5), ("winx", 0.0), ("winx", 0.5), ("winb", 0.5)])
+@pytest.mark.parametrize("variant,fill", [("whole", 0.0), ("whole", 0.5), ("win", 0.5), ("winx", 0.0),
+                                          ("winx", 0.5), ("winb", 0.5)])
 def test_kernel_entry_matches_pallas_interpret(variant, fill):
     img, coords, tgt = _case(2, (19, 23), (17, 13))
     ours, g_img, _ = _torch_value_and_grads(lambda i, c: ws.FORWARDS[variant](i, c, fill), img, coords, tgt)
@@ -144,6 +153,53 @@ def test_source_taller_than_the_tpu_limit():
         np.testing.assert_allclose(ours.numpy(), np.asarray(jw.bilinear_sample(jnp.asarray(img), jnp.asarray(coords), fill=0.5)), atol=1e-5)
 
 
+@pytest.mark.parametrize("src_hw,hw", [((19, 23), (17, 13)), ((186, 37), (40, 16))])
+def test_win3_entry_matches_pallas_win3_interpret(src_hw, hw):
+    """The second case takes the TPU kernel's second-window branch."""
+    img, coords, tgt = _case(10, src_hw, hw)
+    ours, g_img, _ = _torch_value_and_grads(lambda i, c: ws.bilinear_sample_pallas_win3(i, c, 0.25), img, coords, tgt)
+    fn = jpw.bilinear_sample_pallas_win3
+    np.testing.assert_allclose(ours, np.asarray(fn(jnp.asarray(img), jnp.asarray(coords), 0.25, True)), atol=1e-5)
+    j_img = jax.grad(lambda i: jnp.sum((fn(i, jnp.asarray(coords), 0.25, True) - tgt) ** 2))(jnp.asarray(img))
+    np.testing.assert_allclose(g_img, np.asarray(j_img), atol=1e-5)
+
+
+def test_win3_close_to_exact_but_not_exact():
+    """The JAX test's case and bounds (tests/test_pallas_warp.py
+    test_windowed_split3_close_to_exact); and some element differs from the
+    exact warp, so the split cannot silently become the exact path."""
+    img = np.asarray(jax.random.uniform(jax.random.PRNGKey(13), (186, 37, 3)))
+    coords = _coords(np.random.default_rng(14), (40, 16), (186, 37), spread=1.2)
+    tgt = np.asarray(jax.random.normal(jax.random.PRNGKey(15), (40, 16, 3)))
+    ours, g_img, _ = _torch_value_and_grads(lambda i, c: ws.bilinear_sample_pallas_win3(i, c, 0.25), img, coords, tgt)
+    exact = jw.bilinear_sample(jnp.asarray(img), jnp.asarray(coords), fill=0.25)
+    np.testing.assert_allclose(ours, np.asarray(exact), atol=3e-4)
+    g_ref = jax.grad(lambda i: jnp.sum((jw.bilinear_sample(i, jnp.asarray(coords), fill=0.25) - tgt) ** 2))(jnp.asarray(img))
+    np.testing.assert_allclose(g_img, np.asarray(g_ref), atol=2e-3)
+    mm, g_mm, _ = _torch_value_and_grads(lambda i, c: tw.bilinear_sample_mm(i, c, 0.25), img, coords, tgt)
+    assert (ours != mm).any() and (g_img != g_mm).any()
+    assert ws.bilinear_sample_split3 is not tw.bilinear_sample_mm
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_mm_precision_matches_jax_and_changes_nothing_on_the_cpu(precision):
+    img, coords, tgt = _case(11, (19, 23), (17, 13))
+    ours, g_img, _ = _torch_value_and_grads(lambda i, c: tw.bilinear_sample_mm(i, c, 0.5, precision), img, coords, tgt)
+    plain, g_plain, _ = _torch_value_and_grads(lambda i, c: tw.bilinear_sample_mm(i, c, 0.5), img, coords, tgt)
+    np.testing.assert_array_equal(ours, plain)
+    np.testing.assert_array_equal(g_img, g_plain)
+    jfn = lambda i: jw.bilinear_sample_mm(i, jnp.asarray(coords), 0.5, precision)  # noqa: E731
+    np.testing.assert_allclose(ours, np.asarray(jfn(jnp.asarray(img))), atol=1e-5)
+    j_img = jax.grad(lambda i: jnp.sum((jfn(i) - tgt) ** 2))(jnp.asarray(img))
+    np.testing.assert_allclose(g_img, np.asarray(j_img), atol=1e-4)
+    m = torch.tensor(_homography(np.random.default_rng(3)))
+    torch.testing.assert_close(
+        tw.warp_homography(torch.tensor(img), m, (9, 11), mm_adjoint=True, precision=precision),
+        tw.warp_homography(torch.tensor(img), m, (9, 11), mm_adjoint=True), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="precision"):
+        tw.bilinear_sample_mm(torch.tensor(img), torch.tensor(coords), 0.0, "fast")
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     img, coords = torch.zeros(5, 6, 3), torch.zeros(4, 4, 2)
     with pytest.raises(TypeError):
@@ -185,11 +241,12 @@ def test_warp_homography_batched_and_dispatch():
         for v in range(3):
             one = tw.warp_homography(imgs[b], ms[b, v], (9, 11), fill=0.5, mm_adjoint=True)
             torch.testing.assert_close(out[b, v], one, atol=1e-6, rtol=0)
-    for impl in ("pallas_win", "pallas_winx", "pallas_winb", "mm"):
+    for impl in ("pallas", "pallas_win", "pallas_winx", "pallas_winb", "mm"):
         torch.testing.assert_close(tw.warp_homography(imgs, ms, (9, 11), fill=0.5, impl=impl), out, atol=1e-5, rtol=0)
-    for impl in ("pallas", "pallas_win3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tw.warp_homography(imgs, ms, (9, 11), impl=impl)
+    win3 = tw.warp_homography(imgs, ms, (9, 11), fill=0.5, impl="pallas_win3")
+    torch.testing.assert_close(win3, out, atol=3e-4, rtol=0)
+    assert not torch.equal(win3, out)
+    torch.testing.assert_close(tw.warp_homography(imgs, ms, (9, 11), fill=0.5, impl="mm_split3"), win3, atol=0, rtol=0)
     with pytest.raises(ValueError):
         tw.warp_homography(imgs, ms, (9, 11), impl="nope")
 
