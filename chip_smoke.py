@@ -27,8 +27,8 @@ each of which exits non-zero when it fails:
    published widths, batch 16, 16 views in chunks of 8: 143 guided steps.
    Check shapes, values, the guided-step counts and the launch counts;
    profile a few guided steps; run one guidance iteration through each of
-   the other four forward kernels (and their adjoints), and one whole guided
-   step, against the same computation through the plain warp; one guidance
+   the other four forward kernels (and their adjoints), and two whole guided
+   steps, against the same computation through the plain warp; one guidance
    iteration and a profile of a few guided steps with the bf16 vision tower
    against the fp32 one;
 7. ``clip_roi`` on the same denoiser and ViT-B/32: a 96x128 box of a seeded
@@ -60,13 +60,25 @@ Tolerances (max |kernel - plain| against the plain version's values):
   * one guidance iteration (warp, colour ops, ViT-B/32 forward and backward)
     through a warp kernel against the same through the plain warp: gradient
     within GUIDE_TOL of max |gradient| for all but GUIDE_OUTLIERS of the
-    elements and within GUIDE_WORST of it everywhere. The views differ by
-    ~1e-7; the tower carries that to the gradient, and a view pixel that
-    close to a kink of the colour ops (a clip bound, a hue sector edge)
-    takes the other branch, which moves the four source pixels under it;
-  * one whole guided step (the hook): x within 1e-4 absolute for all but
-    GUIDE_OUTLIERS of the elements (the same kinks), the mask equal except
-    at most 0.1% of the pixels (an energy within rounding of the quantile);
+    elements, a cosine of at least GUIDE_COS, the loss within 1e-4. The
+    views differ by ~1e-7; the tower carries that to the gradient, and a
+    view pixel that close to a kink of the colour ops (a clip bound, a hue
+    sector edge) takes the other branch, which moves the four source pixels
+    under it. Half of the walk's output sits exactly on a clip bound, where
+    the two paths' last bits decide the branch, so the worst element is
+    printed, not bounded: over 40 inputs (guided_check_spread.py, H100) it
+    reached 0.11 of max |gradient|, and 16 inputs went past 0.05;
+  * the first whole guided step (the hook), which fixes the edit mask: the
+    mask equal except at most 0.1% of the pixels (an energy within rounding
+    of the quantile), and each sample's update (x out - x in) with a cosine
+    of at least GUIDE_COS to the plain path's. x itself is not bounded
+    there: the step soft-thresholds the gradient at its per-sample energy
+    quantile q and rescales it by |x m| / |g m|, so a kink that moves q
+    shifts every masked pixel of that sample, and the share of x over 1e-4
+    has a tail past 0.1% (2.3e-3 in one H100 run);
+  * the next guided step, with that mask (every later step of a walk): x
+    within 1e-4 absolute for all but GUIDE_OUTLIERS of the elements (the
+    same kinks);
   * one guidance iteration with the bf16 vision tower against the fp32 one:
     finite, the loss within 2e-2 relative (bf16 keeps ~3 digits); the
     gradients' cosine is printed, not bounded.
@@ -100,7 +112,7 @@ BLOCKS = (("l1", 3, 80), ("l2", 80, 160), ("l3", 160, 160), ("l4", 160, 80))
 RAGGED_HW = (19, 21)
 N_AUG, VIEW_CHUNK = 16, 8
 STRENGTH, FILL_FACTOR, STOP_GUIDANCE = 0.3, 0.3, 3
-GUIDE_TOL, GUIDE_OUTLIERS, GUIDE_WORST = 1e-5, 1e-3, 5e-2
+GUIDE_TOL, GUIDE_OUTLIERS, GUIDE_COS = 1e-5, 1e-3, 0.999
 WARP_REPLACES = {  # C entry -> the TPU kernel's pallas_call
     "whole_fwd": "sinddm_tpu/ops/pallas_warp.py:160",
     "whole_bwd": "sinddm_tpu/ops/pallas_warp.py:198",
@@ -221,16 +233,17 @@ def share_over(diff, tol):
 
 def iteration_check(label, loss_k, grad_k, loss_p, grad_p, extra=""):
     """Print one guidance iteration against another (GUIDE tolerances) and
-    return whether it passes, and the gradients' cosine."""
+    return whether it passes, the gradients' cosine and the printed numbers."""
     g_max = grad_p.abs().max().item()
     diff = (grad_k - grad_p).abs()
     over, worst = share_over(diff, GUIDE_TOL * g_max), diff.max().item()
     cos = ((grad_k * grad_p).sum() / (grad_k.norm() * grad_p.norm())).item()
-    ok = over <= GUIDE_OUTLIERS and worst <= GUIDE_WORST * g_max and abs(loss_k.item() - loss_p.item()) <= 1e-4
-    say(f"[{label}] loss {loss_k.item():.6f} vs {loss_p.item():.6f} grad: median |diff| {diff.median().item():.3e} "
-        f"share over {GUIDE_TOL:g}*max|g| {over:.3e} (<= {GUIDE_OUTLIERS:g}) worst {worst:.3e} of max|g| "
-        f"{g_max:.3e} (<= {GUIDE_WORST:g}*max|g|) cosine {cos:.8f} {extra}{'ok' if ok else 'over the GUIDE bounds'}")
-    return ok, cos
+    ok = over <= GUIDE_OUTLIERS and cos >= GUIDE_COS and abs(loss_k.item() - loss_p.item()) <= 1e-4
+    summary = (f"loss {loss_k.item():.6f} vs {loss_p.item():.6f} grad: median |diff| {diff.median().item():.3e} "
+               f"share over {GUIDE_TOL:g}*max|g| {over:.3e} (<= {GUIDE_OUTLIERS:g}) cosine {cos:.8f} "
+               f"(>= {GUIDE_COS:g}) worst {worst:.3e} of max|g| {g_max:.3e} ({worst / g_max:.3e})")
+    say(f"[{label}] {summary} {extra}{'ok' if ok else 'over the GUIDE bounds'}")
+    return ok, cos, summary
 
 
 def profile_walk(run):
@@ -704,39 +717,62 @@ def main() -> None:
         if variant == "win3":
             g_launches[adjoint] = ws.launches[adjoint]
         plain_impl = "mm_split3" if variant == "win3" else "mm"
-        ok, _ = iteration_check(f"check guidance iteration --warp_impl {impl} vs {plain_impl}", loss_k, grad_k,
-                                *plain[plain_impl], extra=f"launches {ws.launches} ")
+        ok, _, summary = iteration_check(f"check guidance iteration --warp_impl {impl} vs {plain_impl}", loss_k,
+                                         grad_k, *plain[plain_impl], extra=f"launches {ws.launches} ")
         if not ok:
-            fail(f"a guidance iteration through {impl} disagrees with its plain version")
+            fail(f"a guidance iteration through {impl} disagrees with its plain version: {summary}")
         if variant == "win3":
             # the split's own error, through the colour ops and the tower: a finding, bounded loosely
-            _, cos = iteration_check("finding: guidance iteration --warp_impl pallas_win3 vs exact mm", loss_k, grad_k,
-                                     *plain["mm"])
+            _, cos, _ = iteration_check("finding: guidance iteration --warp_impl pallas_win3 vs exact mm", loss_k,
+                                        grad_k, *plain["mm"])
             rel = abs(loss_k.item() - plain["mm"][0].item()) / abs(plain["mm"][0].item())
             results["win3_iteration"] = dict(loss_rel=rel, grad_cos=cos)
             if not (rel <= 1e-4 and cos >= 0.99):
                 fail(f"win3's guidance iteration is off the exact one: loss {rel:.3e} relative, cosine {cos:.6f}")
 
-    # one whole guided step, the hook: kernel (winx, the default) against plain
+    # two whole guided steps, the hook: kernel (winx, the default) against
+    # plain. The first fixes the edit mask; the second, like every later step
+    # of a walk, runs with that mask (the kernel path's, given to both).
     x_recon = g_outs[-1] + 0.05 * torch.randn(g_outs[-1].shape, generator=gen, device="cuda")
-    hook = {}
-    for path, ex in (("kernel", extractor), ("plain", plain_ex)):
-        fn = cg.make_clip_guidance(ex, text_hr, stop_guidance=STOP_GUIDANCE, draw_fn=lambda b, n: draws, **hook_kw)
-        with torch.no_grad():
-            hook[path] = fn(x_recon, None, 10, n_scales - 1, cg.init_clip_carry(BATCH, (h_fin, w_fin)))
-    torch.cuda.synchronize()
-    (xk, ck, _), (xp, cp, _) = hook["kernel"], hook["plain"]
-    diff = (xk - xp).abs()
-    over, worst = share_over(diff, 1e-4), diff.max().item()
+
+    def hook_step(t_step, carry, step_draws):
+        out = {}
+        for path, ex in (("kernel", extractor), ("plain", plain_ex)):
+            fn = cg.make_clip_guidance(ex, text_hr, stop_guidance=STOP_GUIDANCE,
+                                       draw_fn=lambda b, n: step_draws, **hook_kw)
+            with torch.no_grad():
+                out[path] = fn(x_recon, None, t_step, n_scales - 1, carry)
+        torch.cuda.synchronize()
+        (xk, ck, _), (xp, cp, _) = out["kernel"], out["plain"]
+        diff = (xk - xp).abs()
+        in_range = bool(torch.isfinite(xk).all()) and xk.abs().max().item() <= 1.0
+        return xk, ck, xp, cp, share_over(diff, 1e-4), diff.max().item(), in_range
+
+    def step_check(label, held, line):
+        bad = [what for what, ok in held.items() if not ok]
+        say(f"[check {label}, kernel vs plain] {line} {'FAIL: ' + ', '.join(bad) if bad else 'ok'}")
+        if bad:
+            fail(f"the {label} through the kernels disagrees with the plain warp: {', '.join(bad)}")
+
+    xk, ck, xp, cp, over, worst, in_range = hook_step(10, cg.init_clip_carry(BATCH, (h_fin, w_fin)), draws)
     mask_off = (ck.mask != cp.mask).float().mean().item()
     covered = ck.mask.mean().item()
-    ok = (over <= GUIDE_OUTLIERS and mask_off <= 1e-3 and ck.has_mask and abs(covered - FILL_FACTOR) <= 0.01
-          and bool(torch.isfinite(xk).all()) and xk.abs().max().item() <= 1.0)
-    say(f"[check guided step, kernel vs plain] x share over 1e-4 {over:.3e} (<= {GUIDE_OUTLIERS:g}) worst {worst:.3e} "
-        f"mask differs at {mask_off:.3e} of pixels (<= 1e-3) covered share {covered:.4f} "
-        f"(fill factor {FILL_FACTOR}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail("a guided step through the kernels disagrees with the plain warp")
+    x_in = x_recon.clamp(-1.0, 1.0)
+    uk, up = (xk - x_in).reshape(BATCH, -1), (xp - x_in).reshape(BATCH, -1)
+    cos = ((uk * up).sum(1) / (uk.norm(dim=1) * up.norm(dim=1))).min().item()
+    step_check("first guided step", {
+        f"mask differs at {mask_off:.3e} of pixels": mask_off <= 1e-3,
+        f"covered share {covered:.4f}": ck.has_mask and abs(covered - FILL_FACTOR) <= 0.01,
+        f"update cosine {cos:.6f}": cos >= GUIDE_COS,
+        "x non-finite or outside [-1, 1]": in_range,
+    }, f"mask differs at {mask_off:.3e} of pixels (<= 1e-3) covered share {covered:.4f} (fill factor "
+       f"{FILL_FACTOR}) update cosine, least of a sample {cos:.9f} (>= {GUIDE_COS:g}); finding: x share "
+       f"over 1e-4 {over:.3e} worst {worst:.3e}")
+    _, _, _, _, over, worst, in_range = hook_step(9, ck, extractor.draw(BATCH, text_hr.shape[0]))
+    step_check("guided step with the mask", {
+        f"x share over 1e-4 {over:.3e}": over <= GUIDE_OUTLIERS,
+        "x non-finite or outside [-1, 1]": in_range,
+    }, f"x share over 1e-4 {over:.3e} (<= {GUIDE_OUTLIERS:g}) worst {worst:.3e}")
 
     # the bf16 vision tower (--clip_dtype bfloat16): the same weights, its
     # matrix products on the bf16 tensor cores; one guidance iteration against
@@ -810,9 +846,9 @@ def main() -> None:
         roi_k = roi_ex.clip_loss_and_grad((patch + 1) * 0.5, text_lr, roi_draws)
         roi_p = plain_ex.clip_loss_and_grad((patch + 1) * 0.5, text_lr, roi_draws)
     torch.cuda.synchronize()
-    ok, _ = iteration_check("check clip_roi ascent iteration --warp_impl pallas vs mm", *roi_k, *roi_p)
+    ok, _, summary = iteration_check("check clip_roi ascent iteration --warp_impl pallas vs mm", *roi_k, *roi_p)
     if not ok:
-        fail("a clip_roi ascent iteration through kernels 3-4 disagrees with the plain warp")
+        fail(f"a clip_roi ascent iteration through kernels 3-4 disagrees with the plain warp: {summary}")
     _clip_roi_ascent(roi_ex, patch, text_lr, 1, ROI_STRENGTH)
     results["roi_iteration"] = profile_groups(
         "profile clip_roi", f"3 ascent iterations on the {h}x{w} box", "iteration", 3,
