@@ -12,11 +12,15 @@ each of which exits non-zero when it fails:
    (the four dim=160 blocks at 16x186x248, fp32 and bf16; the eight view-warp
    kernels at 16 images x 8 views of 224x298 from 186x248x3, value and image
    gradient; win3 also against the exact warp) and at ragged shapes
-   (1x19x21; a 300-row source);
+   (1x19x21; a 300-row source), and, for the run kernels (winx, win3) and
+   the others alike, one launch that mixes views with coords scattered over
+   the whole source, flat coords, and 37x45 frames;
 4. time each kernel with CUDA events beside its bound, its plain version
    and, where there is one, the one PyTorch call that computes it
    (``F.conv2d`` with groups, ``F.grid_sample``; for win3 the library call
-   computes the exact warp, not the split one);
+   computes the exact warp, not the split one); winx and win3 also as the
+   kernel alone (their C entry, no wrapper); check with torch.profiler that
+   the win3 entry is one launch;
 5. sample the full 5-scale balloons pyramid at dim=160, batch 16, fp32,
    with seeded random weights, through the kernels: check shapes, finite
    values and the launch counts; profile a second walk (device time by
@@ -227,6 +231,28 @@ def grid_sample_inputs(img, coords):
     return img.permute(0, 3, 1, 2).contiguous(), grid.contiguous()
 
 
+def run_kernel(build, variant, img, coords, fill):
+    """One launch of the winx or win3 C entry on buffers made here, without
+    the wrapper's checks, copies and allocation: the kernel alone. Fails
+    unless a first launch returns success."""
+    b, h, w, c = img.shape
+    coords3 = coords.reshape(b, -1, 2).contiguous()
+    n = coords3.shape[1]
+    out = torch.empty((b, n, c), device=img.device)
+    fn = getattr(build.library("warp_sample"), f"sinddm_warp_{variant}_fwd")
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+
+    def launch():
+        return fn(img.data_ptr(), coords3.data_ptr(), out.data_ptr(), fill, b, h, w, c, n,
+                  img.device.index or 0, stream)
+
+    err = launch()
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"the {variant} C entry returned cudaError {err}")
+    return launch
+
+
 def share_over(diff, tol):
     return (diff > tol).float().mean().item()
 
@@ -415,8 +441,19 @@ def main() -> None:
     rotated = wp.homography_coords(
         wp.crop_resize_matrix(0.0, 0.0, 300.0, 23.0, (17, 13), device="cuda")
         @ wp.affine_matrix(torch.tensor(40.0, device="cuda"), (0.0, 0.0), (17, 13)), (17, 13))
-    warp_cases = (("main", warp_img, view_coords(0, VIEW_CHUNK), 1.0),
-                  ("ragged", tall, torch.stack([spread, rotated])[None], 0.5))
+    # the run kernels' (winx, win3) other cases: one launch with views and
+    # coords scattered over the whole source; flat coords; 37x45 frames, where
+    # a run of 1024 samples ends inside an image
+    main_coords = view_coords(0, VIEW_CHUNK)
+    scattered = (torch.rand((BATCH, 1) + frame + (2,), generator=gen, device="cuda") * 1.5 - 0.2) * torch.tensor(
+        [float(w_fin), float(h_fin)], device="cuda")
+    small_img = torch.rand((BATCH, 30, 36, 3), generator=gen, device="cuda")
+    small_views = wp.homography_coords(ce.view_matrices(view_draws.views(0, 2), range(2), (30, 36), (37, 45)), (37, 45))
+    warp_cases = (("main", warp_img, main_coords, 1.0),
+                  ("ragged", tall, torch.stack([spread, rotated])[None], 0.5),
+                  ("mixed", warp_img, torch.cat([view_coords(0, 1), scattered], dim=1), 1.0),
+                  ("flat", warp_img, main_coords.reshape(BATCH, -1, 2), 1.0),
+                  ("frame 37x45", small_img, small_views, 0.0))
     results["warp_err"] = {}
     for case, img, coords, fill in warp_cases:
         ct = torch.randn(coords.shape[:-1] + (3,), generator=gen, device="cuda")
@@ -540,11 +577,26 @@ def main() -> None:
             flops, nbytes = warp_work(BATCH, n_px, h_fin, w_fin, 3, adjoint=entry.endswith("_bwd"),
                                       split3=entry.startswith("win3"))
             b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
-            say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
-                f"MFLOP {flops / 1e6:.1f} MB {nbytes / 1e6:.1f} bound_ms {b_ms:.4f} ({b_by}) GB/s {nbytes / k_ms / 1e6:.1f}")
+            alone = ""
+            if entry.endswith("_fwd") and entry[:-4] in ws.RUN_KERNELS:  # the kernel alone: its C entry
+                alone_ms = time_ms(run_kernel(_build, entry[:-4], warp_img, coords, 1.0), reps=20)
+                alone = f"kernel_alone_ms {alone_ms:.4f} "
+            say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} {alone}plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
+                f"MFLOP {flops / 1e6:.1f} MB {nbytes / 1e6:.1f} bound_ms {b_ms:.4f} ({b_by}) share of the bound "
+                f"{b_ms / k_ms:.3f} GB/s {nbytes / k_ms / 1e6:.1f}")
             if n_views == VIEW_CHUNK:
                 results["warp"][entry] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                                               bound_by=b_by, shape=shape)
+                if alone:
+                    results["warp"][entry]["kernel_alone_ms"] = alone_ms
+        if n_views == VIEW_CHUNK:  # the win3 entry is one launch: the split happens in the kernel
+            prof = profile_walk(lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0))
+            if prof is None:
+                fail("torch.profiler recorded no device activity over a win3 entry call")
+            names = {k: n for k, (_, n) in prof[0].items()}
+            say(f"[check warp win3 entry launches] device kernels of one call: {names} (1 expected)")
+            if sum(names.values()) != 1:
+                fail(f"the win3 entry launches {sum(names.values())} kernels, not one: {names}")
         del coords, ct, x_lib, grid, lib_out, ct_lib, x_plain, plain_out, coords3, timed
     ws.reset_launches()
 
@@ -877,7 +929,7 @@ def main() -> None:
             "replaces": where, "launches": g_launches[entry],
             "max_abs_err": results["warp_err"][entry], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"],
+            "shape": r["shape"], **({"kernel_alone_ms": r["kernel_alone_ms"]} if "kernel_alone_ms" in r else {}),
         })
     # the paths' record: walk times, device time by group a guided step or an
     # ascent iteration (ms), and the reduced-precision findings

@@ -43,11 +43,24 @@
 // their summation order changes from run to run.
 //
 // Bound on the H100: device-memory bytes. A forward must read the coords
-// (8 B a pixel) and the source once (win3: two bf16 planes) and write C
-// floats a pixel; an adjoint reads coords and cotangent and zeroes and
-// writes the gradient image. The source (a few hundred KB an image) stays in
-// L2, so the gathers and the atomics are L2 traffic. Nothing is staged in
-// shared memory yet.
+// (8 B a pixel) and the source once and write C floats a pixel; an adjoint
+// reads coords and cotangent and zeroes and writes the gradient image. The
+// source (a few hundred KB an image) stays in L2, so the gathers and the
+// atomics are L2 traffic.
+//
+// winx and win3 (the guided default, and its split twin) run a block on a
+// run of 1024 consecutive samples, a thread 8 samples with their channels in
+// registers (taps and weight splits formed once a sample), 32-bit indices,
+// one division a block and none a thread. On the card the gathers do not bound them, the
+// per-sample stream and its latency do: coords in and outputs out (the bytes
+// bound). So a thread keeps its 8 samples' loads in flight together, coords
+// load as float2, outputs leave through shared memory as 16-byte stores,
+// each warp-wide and contiguous, and win3 splits the fp32 image in the
+// kernel (one launch, no split passes). 2-D patches of a view with their
+// source box staged in shared memory (cp.async) measured slower: cheaper
+// gathers did not repay the box's reduction, barriers and copy (PERF.md,
+// PR 4). whole, win, winb and the adjoints still
+// run a thread a sample (or a sample-channel).
 //
 // C interface, loaded with ctypes: every entry returns the cudaError_t of
 // its launch (0 on success) and never synchronises.
@@ -98,6 +111,18 @@ __device__ __forceinline__ Taps hat_taps_tpu(float v, int n) {
 __device__ __forceinline__ float blend_fill(float val, const Taps& ty, const Taps& tx, float fill) {
   const float cover = (ty.w0 + ty.w1) * (tx.w0 + tx.w1);
   return val + fill * (1.f - cover);
+}
+
+// v = hi + lo with hi = bf16(v), lo = bf16(v - hi), both widened back to fp32.
+struct Split {
+  float hi, lo;
+};
+
+__device__ __forceinline__ Split split_bf16(float v) {
+  Split s;
+  s.hi = __bfloat162float(__float2bfloat16_rn(v));
+  s.lo = __bfloat162float(__float2bfloat16_rn(v - s.hi));
+  return s;
 }
 
 // img [B, H, W, C], coords [B, N, 2], out [B, N, C]; one thread per (b, q)
@@ -175,26 +200,6 @@ warp_win_fwd_kernel(const float* __restrict__ img, const float* __restrict__ coo
   out[i] = blend_fill(fmaf(a1, tx.w1, a0 * tx.w0), ty, tx, fill);
 }
 
-// The same function, columns first: r_y = B-weighted row sample at each y
-// tap, then sum over y.
-__global__ void __launch_bounds__(kWarpThreads)
-warp_winx_fwd_kernel(const float* __restrict__ img, const float* __restrict__ coords,
-                     float* __restrict__ out, float fill, int B, int H, int W, int C, int N) {
-  const long long i = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
-  if (i >= (long long)B * N * C) return;
-  const int c = (int)(i % C);
-  const long long p = i / C;
-  const int b = (int)(p / N);
-  const Taps tx = hat_taps(coords[2 * p], W);
-  const Taps ty = hat_taps(coords[2 * p + 1], H);
-  const float* im = img + (size_t)b * H * W * C + c;
-  const float* r0 = im + (size_t)ty.i0 * W * C;
-  const float* r1 = im + (size_t)ty.i1 * W * C;
-  const float s0 = fmaf(tx.w1, r0[tx.i1 * C], tx.w0 * r0[tx.i0 * C]);
-  const float s1 = fmaf(tx.w1, r1[tx.i1 * C], tx.w0 * r1[tx.i0 * C]);
-  out[i] = blend_fill(fmaf(s1, ty.w1, s0 * ty.w0), ty, tx, fill);
-}
-
 // winx with the channels batched: one thread per (b, q) computes the tap
 // weights once and walks the C contiguous channels of each of the four taps.
 __global__ void __launch_bounds__(kWarpThreads)
@@ -247,56 +252,183 @@ warp_win_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ coor
   }
 }
 
-// v = hi + lo with hi = bf16(v), lo = bf16(v - hi), both widened back to fp32.
-struct Split {
-  float hi, lo;
-};
-
-__device__ __forceinline__ Split split_bf16(float v) {
-  Split s;
-  s.hi = __bfloat162float(__float2bfloat16_rn(v));
-  s.lo = __bfloat162float(__float2bfloat16_rn(v - s.hi));
-  return s;
-}
-
 // a * b by three bf16 x bf16 products, each exact in fp32, summed as the TPU
 // kernel sums its three dots: (hi*hi + hi*lo) + lo*hi.
 __device__ __forceinline__ float mul3(const Split& a, const Split& b) {
   return fmaf(a.lo, b.hi, fmaf(a.hi, b.lo, a.hi * b.hi));
 }
 
-// The windowed warp with split-bf16x3 row products: ihi / ilo [B, H, W, C]
-// are the image's bf16 parts, coords [B, N, 2], out [B, N, C]; one thread
-// per (b, q, c). At each x tap the row sum over the two y taps is formed dot
-// by dot (a_hi.i_hi, a_hi.i_lo, a_lo.i_hi, each over y) and the three dots
-// are added, then the column weights (fp32, unsplit) take the sum over x.
-__global__ void __launch_bounds__(kWarpThreads)
-warp_win3_fwd_kernel(const __nv_bfloat16* __restrict__ ihi, const __nv_bfloat16* __restrict__ ilo,
-                     const float* __restrict__ coords, float* __restrict__ out, float fill, int B,
-                     int H, int W, int C, int N) {
-  const long long i = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
-  if (i >= (long long)B * N * C) return;
-  const int c = (int)(i % C);
-  const long long p = i / C;
-  const int b = (int)(p / N);
-  const Taps tx = hat_taps_tpu(coords[2 * p], W);
-  const Taps ty = hat_taps_tpu(coords[2 * p + 1], H);
-  const Split a0 = split_bf16(ty.w0), a1 = split_bf16(ty.w1);
-  const size_t base = (size_t)b * H * W * C + c;
-  const size_t r0 = base + (size_t)ty.i0 * W * C, r1 = base + (size_t)ty.i1 * W * C;
-  float slab[2];
-  const int xs[2] = {tx.i0, tx.i1};
+// ---- the winx and win3 forwards: a run of samples a block ------------------
+//
+// A block computes kRun consecutive samples of one image (blockIdx.x =
+// image * runs + run), a thread kRowsPerWarp samples with their C channels
+// in registers, 32-bit indices throughout. Warp w takes the rows of
+// 32 samples w, w + kWarps, ... of the run, so each load of coords and each
+// store of outputs is one contiguous warp-wide access. The taps come from
+// global memory through the read-only path (the source, a few hundred KB an
+// image, stays in L2); win3 splits each tap into its bf16 parts as it reads
+// it, so its entry is one launch over the fp32 image. With C = 3 (the
+// path's) a warp's outputs are staged in shared memory at the alignment of
+// their place in `out` and leave as 16-byte stores; with C at run time each
+// sample's channels go straight to `out`.
+constexpr int kTileW = 32;                            // a row of samples is one warp's
+constexpr int kWarps = 4;                             // a block
+constexpr int kRowsPerWarp = 8;                       // rows warp, warp + kWarps, ...
+constexpr int kRun = kTileW * kWarps * kRowsPerWarp;  // samples a block
+constexpr int kTileThreads = kTileW * kWarps;
+
+// n outputs of a row from shared memory (src at the alignment of dst mod 16
+// bytes, shift floats past a boundary) to dst: a scalar head to the 16-byte
+// boundary, float4s, a scalar tail; one warp.
+__device__ __forceinline__ void store_row(float* dst, const float* src, int n, int shift, int lane) {
+  const int head = min(n, (4 - shift) & 3);
+  const int nv = (n - head) >> 2;
+  for (int i = lane; i < head; i += kTileW) dst[i] = src[i];
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  for (int i = lane; i < nv; i += kTileW) d4[i] = s4[i];
+  for (int i = head + 4 * nv + lane; i < n; i += kTileW) dst[i] = src[i];
+}
+
+// A tap's value, 0 where the tap carries no weight (the kernels that run a
+// thread a sample read a clamped pixel there and multiply it by 0).
+__device__ __forceinline__ float tap_f32(const float* src, int i, bool ok) {
+  return ok ? __ldg(src + i) : 0.f;
+}
+
+// The bf16 parts of two taps (rows 0 and 1 at one column), both roundings
+// of each step in one packed conversion: split_bf16 of each, bit for bit.
+struct Split2 {
+  Split a, b;
+};
+
+__device__ __forceinline__ Split2 tap_split2(const float* src, int i, bool ok_i, int j, bool ok_j) {
+  const float u = tap_f32(src, i, ok_i), v = tap_f32(src, j, ok_j);
+  Split2 s;
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(u, v);
+  s.a.hi = __low2float(hi);
+  s.b.hi = __high2float(hi);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(u - s.a.hi, v - s.b.hi);
+  s.a.lo = __low2float(lo);
+  s.b.lo = __high2float(lo);
+  return s;
+}
+
+// One sample's C channels into dst[0, C). off / ok: the taps (row 0, col 0),
+// (row 0, col 1), (row 1, col 0), (row 1, col 1) as offsets into src and
+// whether each carries weight.
+//   winx: along x first, r_y = B-weighted row sample at each y tap, then the
+//         sum over y;
+//   win3: at each x tap the row sum over the two y taps formed dot by dot
+//         (a_hi.i_hi, a_hi.i_lo, a_lo.i_hi, each over y) and the three dots
+//         added, then the column weights (fp32, unsplit) take the sum over x.
+template <int kC, bool kSplit>
+__device__ __forceinline__ void run_sample(const float* src, const int (&off)[4], const bool (&ok)[4],
+                                           int C, const Taps& ty, const Taps& tx, float fill,
+                                           float* dst) {
+  const int nc = kC > 0 ? kC : C;
+  if constexpr (kSplit) {
+    const Split a0 = split_bf16(ty.w0), a1 = split_bf16(ty.w1);
+    for (int c = 0; c < nc; ++c) {
+      float slab[2];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const size_t o0 = r0 + (size_t)xs[k] * C, o1 = r1 + (size_t)xs[k] * C;
-    const float h0 = __bfloat162float(ihi[o0]), l0 = __bfloat162float(ilo[o0]);
-    const float h1 = __bfloat162float(ihi[o1]), l1 = __bfloat162float(ilo[o1]);
-    const float hh = fmaf(a1.hi, h1, a0.hi * h0);
-    const float hl = fmaf(a1.hi, l1, a0.hi * l0);
-    const float lh = fmaf(a1.lo, h1, a0.lo * h0);
-    slab[k] = (hh + hl) + lh;
+      for (int k = 0; k < 2; ++k) {
+        const Split2 i = tap_split2(src, off[k] + c, ok[k], off[2 + k] + c, ok[2 + k]);
+        const Split &i0 = i.a, &i1 = i.b;
+        const float hh = fmaf(a1.hi, i1.hi, a0.hi * i0.hi);
+        const float hl = fmaf(a1.hi, i1.lo, a0.hi * i0.lo);
+        const float lh = fmaf(a1.lo, i1.hi, a0.lo * i0.hi);
+        slab[k] = (hh + hl) + lh;
+      }
+      dst[c] = blend_fill(fmaf(slab[1], tx.w1, slab[0] * tx.w0), ty, tx, fill);
+    }
+  } else {
+    for (int c = 0; c < nc; ++c) {
+      const float v00 = tap_f32(src, off[0] + c, ok[0]);
+      const float v01 = tap_f32(src, off[1] + c, ok[1]);
+      const float v10 = tap_f32(src, off[2] + c, ok[2]);
+      const float v11 = tap_f32(src, off[3] + c, ok[3]);
+      const float s0 = fmaf(tx.w1, v01, tx.w0 * v00);
+      const float s1 = fmaf(tx.w1, v11, tx.w0 * v10);
+      dst[c] = blend_fill(fmaf(s1, ty.w1, s0 * ty.w0), ty, tx, fill);
+    }
   }
-  out[i] = blend_fill(fmaf(slab[1], tx.w1, slab[0] * tx.w0), ty, tx, fill);
+}
+
+// img [B, H, W, C] fp32, coords [B, N, 2], out [B, N, C]; block
+// b * runs + r computes samples [r * kRun, (r + 1) * kRun) of image b. kC = 3
+// is the guided path's; kC = 0 takes C at run time. The body of
+// warp_winx_fwd_kernel (kSplit false) and warp_win3_fwd_kernel (true).
+template <int kC, bool kSplit>
+__device__ __forceinline__ void run_fwd(const float* __restrict__ img, const float2* __restrict__ coords,
+                                        float* __restrict__ out, float fill, int H, int W, int C_,
+                                        int N, int runs) {
+  constexpr int kStride = kTileW * kC + 4;  // a staged row of outputs, room to shift it
+  __shared__ __align__(16) float smem[kC > 0 ? kWarps * kRowsPerWarp * kStride : 1];
+  const int C = kC > 0 ? kC : C_;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int b = blockIdx.x / runs;
+  const int q0 = (blockIdx.x - b * runs) * kRun;
+  const float* im = img + b * H * W * C;
+
+  // the coords of all the thread's samples in flight at once; (-2, -2) has no tap
+  float2 xy[kRowsPerWarp];
+#pragma unroll
+  for (int k = 0; k < kRowsPerWarp; ++k) {
+    const int q = q0 + (warp + kWarps * k) * kTileW + lane;
+    xy[k] = q < N ? coords[b * N + q] : make_float2(-2.f, -2.f);
+  }
+  const auto sample = [&](int k, float* dst) {
+    const Taps ty = kSplit ? hat_taps_tpu(xy[k].y, H) : hat_taps(xy[k].y, H);
+    const Taps tx = kSplit ? hat_taps_tpu(xy[k].x, W) : hat_taps(xy[k].x, W);
+    const bool r0 = ty.w0 != 0.f, r1 = ty.w1 != 0.f, c0 = tx.w0 != 0.f, c1 = tx.w1 != 0.f;
+    const bool ok[4] = {r0 && c0, r0 && c1, r1 && c0, r1 && c1};
+    const int s0 = ty.i0 * W * C, s1 = ty.i1 * W * C, k0 = tx.i0 * C, k1 = tx.i1 * C;
+    const int off[4] = {s0 + k0, s0 + k1, s1 + k0, s1 + k1};
+    run_sample<kC, kSplit>(im, off, ok, C, ty, tx, fill, dst);
+  };
+
+  if constexpr (kC == 0) {
+#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      const int q = q0 + (warp + kWarps * k) * kTileW + lane;
+      if (q < N) sample(k, out + (b * N + q) * C);
+    }
+  } else {
+    // every row's samples into the warp's staging rows, each row at the
+    // alignment of its place in out; then the rows leave together
+    const unsigned out_shift = static_cast<unsigned>(reinterpret_cast<uintptr_t>(out) >> 2);
+    const auto shift = [&](int first) {
+      return static_cast<int>((out_shift + static_cast<unsigned>((b * N + first) * kC)) & 3u);
+    };
+    float* so = smem + warp * kRowsPerWarp * kStride;
+#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      const int first = q0 + (warp + kWarps * k) * kTileW;  // the row's first sample
+      if (first + lane < N) sample(k, so + k * kStride + shift(first) + lane * kC);
+    }
+    __syncwarp();
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      const int first = q0 + (warp + kWarps * k) * kTileW;
+      if (first >= N) break;  // warp-uniform: later rows lie further on
+      const int sh = shift(first);
+      store_row(out + (b * N + first) * kC, so + k * kStride + sh, min(kTileW, N - first) * kC, sh, lane);
+    }
+  }
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads, 8)
+warp_winx_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
+                     float* __restrict__ out, float fill, int H, int W, int C, int N, int runs) {
+  run_fwd<kC, false>(img, coords, out, fill, H, W, C, N, runs);
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads, 8)
+warp_win3_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
+                     float* __restrict__ out, float fill, int H, int W, int C, int N, int runs) {
+  run_fwd<kC, true>(img, coords, out, fill, H, W, C, N, runs);
 }
 
 // Adjoint of win3: gimg[b, y, x, c] += split3(A[q, y] * ct[b, q, c]) x split3(B[q, x]),
@@ -329,6 +461,23 @@ warp_win3_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ coo
 }
 
 inline int blocks_for(long long n) { return (int)((n + kWarpThreads - 1) / kWarpThreads); }
+
+// One launch of warp_winx_fwd_kernel (kSplit false) or warp_win3_fwd_kernel
+// (true): B x runs blocks of (kTileW, kWarps) threads, B * N * C < 2^31.
+template <bool kSplit>
+int launch_run_fwd(const void* img, const void* coords, void* out, float fill, int B, int H, int W,
+                   int C, int N, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || N == 0) return 0;
+  const int runs = (N + kRun - 1) / kRun;
+  const auto kernel = kSplit ? (C == 3 ? &warp_win3_fwd_kernel<3> : &warp_win3_fwd_kernel<0>)
+                             : (C == 3 ? &warp_winx_fwd_kernel<3> : &warp_winx_fwd_kernel<0>);
+  kernel<<<B * runs, dim3(kTileW, kWarps), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), static_cast<const float2*>(coords), static_cast<float*>(out), fill,
+      H, W, C, N, runs);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace sinddm
 
@@ -372,15 +521,10 @@ int sinddm_warp_win_fwd(const void* img, const void* coords, void* out, float fi
   return (int)cudaGetLastError();
 }
 
+// img [B,H,W,C], coords [B,N,2] (8-byte aligned) -> out [B,N,C]; B*N*C < 2^31.
 int sinddm_warp_winx_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
                          int W, int C, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  sinddm::warp_winx_fwd_kernel<<<sinddm::blocks_for((long long)B * N * C), sinddm::kWarpThreads,
-                                 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(coords), static_cast<float*>(out),
-      fill, B, H, W, C, N);
-  return (int)cudaGetLastError();
+  return sinddm::launch_run_fwd<false>(img, coords, out, fill, B, H, W, C, N, device, stream);
 }
 
 int sinddm_warp_winb_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
@@ -409,16 +553,10 @@ int sinddm_warp_win_bwd(const void* ct, const void* coords, void* gimg, int B, i
   return (int)cudaGetLastError();
 }
 
-// ihi, ilo bf16 [B,H,W,C] (the image's split), coords [B,N,2] -> out [B,N,C].
-int sinddm_warp_win3_fwd(const void* ihi, const void* ilo, const void* coords, void* out,
-                         float fill, int B, int H, int W, int C, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  sinddm::warp_win3_fwd_kernel<<<sinddm::blocks_for((long long)B * N * C), sinddm::kWarpThreads,
-                                 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(ihi), static_cast<const __nv_bfloat16*>(ilo),
-      static_cast<const float*>(coords), static_cast<float*>(out), fill, B, H, W, C, N);
-  return (int)cudaGetLastError();
+// As sinddm_warp_winx_fwd; the fp32 image is split into its bf16 parts in the kernel.
+int sinddm_warp_win3_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
+                         int W, int C, int N, int device, void* stream) {
+  return sinddm::launch_run_fwd<true>(img, coords, out, fill, B, H, W, C, N, device, stream);
 }
 
 // ct [B,N,C], coords [B,N,2] -> gimg [B,H,W,C], zeroed here first.

@@ -29,6 +29,9 @@ image b behind index b); the output is ``coords.shape[:-1] + (C,)`` and the
 adjoint sums over every view of an image. The TPU kernels' limits (H <= 256,
 4 MB of source) do not apply.
 
+``winx`` and ``win3`` run a block on a run of consecutive samples of one
+image, a thread on several samples with their channels.
+
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The adjoints accumulate with ``atomicAdd``, so
 their sums come in an order that changes from run to run: they agree with the
@@ -49,6 +52,8 @@ launches = {
 }
 # the adjoint kernel of each forward
 ADJOINT = {"whole": "whole", "win": "win", "winx": "win", "winb": "win", "win3": "win3"}
+# the forwards that run a block on a run of samples (csrc/warp_sample.cu kRun)
+RUN_KERNELS = ("winx", "win3")
 
 
 def reset_launches() -> None:
@@ -139,15 +144,12 @@ def _launch_forward(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fil
     b, h, w, c = img4.shape
     n = coords3.shape[1]
     img4, coords3 = img4.contiguous(), coords3.contiguous()
-    if variant == "win3":  # the image's bf16 parts, split outside the kernel as on the TPU
-        hi = img4.to(torch.bfloat16)
-        planes = (hi, (img4 - hi.float()).to(torch.bfloat16))
-    else:
-        planes = (img4,)
+    if variant in RUN_KERNELS and coords3.data_ptr() % 8:  # the kernel loads (x, y) as one float2
+        coords3 = coords3.clone()
     out = torch.empty((b, n, c), dtype=torch.float32, device=img4.device)
     lib = _build.library("warp_sample")
     err = getattr(lib, f"sinddm_warp_{variant}_fwd")(
-        *(p.data_ptr() for p in planes), coords3.data_ptr(), out.data_ptr(), float(fill), b, h, w, c, n,
+        img4.data_ptr(), coords3.data_ptr(), out.data_ptr(), float(fill), b, h, w, c, n,
         img4.device.index or 0, torch.cuda.current_stream(img4.device).cuda_stream,
     )
     _build.check(lib, err, f"bilinear_sample_pallas_{variant}")

@@ -177,6 +177,84 @@ def test_win3_kernels_match_split3_plain_and_stay_near_exact(gen, b, h, w, c, v,
     assert (grad - gexact).abs().max().item() <= 7e-5 * g_max
 
 
+def _run_case(gen, case, c):
+    """(img, coords, fill) for the run kernels (winx, win3), two images: the
+    path's views of a 120x160 source (224x298 frames); coords scattered over
+    -0.2 .. 1.3 of a 300-row source; both in one launch; 37x45 frames (a
+    run of 1024 samples ends inside an image); the views as flat coords."""
+    from sinddm_tpu_torch.guidance import clip_extractor as ce
+    from sinddm_tpu_torch.ops.warp import homography_coords
+
+    def views(src_hw, frame, n_views=2):
+        m = ce.view_matrices(ce.draw_view_params(2, n_views, gen, "cuda"), range(n_views), src_hw, frame)
+        return homography_coords(m, frame)
+
+    def scattered(src_hw, frame):
+        span = torch.tensor([src_hw[1], src_hw[0]], device="cuda", dtype=torch.float32)
+        return (torch.rand((2, 1) + frame + (2,), generator=gen, device="cuda") * 1.5 - 0.2) * span
+
+    src_hw = {"views": (120, 160), "scattered": (300, 40), "mixed": (186, 248), "frame37x45": (30, 36),
+              "flat": (120, 160)}[case]
+    img = torch.rand((2,) + src_hw + (c,), generator=gen, device="cuda")
+    frame = ce.resize_output_size(*src_hw)
+    if case == "views":
+        return img, views(src_hw, frame), 1.0
+    if case == "flat":
+        return img, views(src_hw, frame).reshape(2, -1, 2), 1.0
+    if case == "scattered":
+        return img, scattered(src_hw, (40, 50)), 0.5
+    if case == "mixed":
+        return img, torch.cat([views(src_hw, frame, 1), scattered(src_hw, frame)], dim=1), 1.0
+    return img, views(src_hw, (37, 45)), 0.0
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 65])
+@pytest.mark.parametrize("case", ["views", "scattered", "mixed", "frame37x45", "flat"])
+@pytest.mark.parametrize("variant", ["winx", "win3"])
+def test_run_kernels_match_plain(gen, variant, case, c):
+    """winx and win3 run a block on 1024 consecutive samples of an image, a
+    thread on 8 samples: value and image gradient against the plain versions
+    at the bounds above, C = 3 (the kernels' compiled case) and others, up to
+    65 (outputs written straight from the thread, not staged)."""
+    img, coords, fill = _run_case(gen, case, c)
+    fn = ws.FORWARDS.get(variant, ws.bilinear_sample_pallas_win3)
+    ct = torch.randn(coords.shape[:-1] + (c,), generator=gen, device="cuda")
+    ws.reset_launches()
+    out, grad = _value_and_grad(fn, img, coords, fill, ct)
+    assert ws.launches == {**dict.fromkeys(ws.launches, 0), f"{variant}_fwd": 1, f"{ws.ADJOINT[variant]}_bwd": 1}
+    plain = ws.bilinear_sample_split3 if variant == "win3" else bilinear_sample_mm
+    ref, gref = _per_image(plain, img, coords, fill, ct)
+    torch.cuda.synchronize()
+    assert out.shape == coords.shape[:-1] + (c,)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    g_max = max(gref.abs().max().item(), 1.0)
+    assert (grad - gref).abs().max().item() <= 1e-5 * g_max
+    if variant == "win3":
+        exact, gexact = _per_image(bilinear_sample_mm, img, coords, fill, ct)
+        torch.testing.assert_close(out, exact, atol=3e-4, rtol=0)
+        assert (grad - gexact).abs().max().item() <= 7e-5 * g_max
+
+
+@pytest.mark.parametrize("variant", ["winx", "win3"])
+def test_run_kernels_take_unaligned_coords_and_outputs(gen, variant):
+    """Coords 4 bytes off the 8 the kernel loads them at, and 1111-sample
+    images of 3 channels, so each image's outputs start at another alignment
+    (the stores' scalar head and tail)."""
+    shape = (3, 57, 61, 3)
+    img = torch.rand(shape, generator=gen, device="cuda")
+    views = (torch.rand((3, 11, 101, 2), generator=gen, device="cuda") * torch.tensor([61.0, 57.0], device="cuda"))
+    cbuf = torch.empty(1 + views.numel(), device="cuda")
+    coords = cbuf[1:].view(views.shape)
+    coords.copy_(views)
+    assert coords.data_ptr() % 8
+    fn = ws.FORWARDS.get(variant, ws.bilinear_sample_pallas_win3)
+    plain = ws.bilinear_sample_split3 if variant == "win3" else bilinear_sample_mm
+    out = fn(img, coords, 1.0)
+    ref = torch.stack([plain(img[i], views[i], 1.0) for i in range(3)])
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(fn(img, views, 1.0), out, atol=0, rtol=0)
+
+
 def test_warp_unbatched_far_coords_and_dispatch(gen):
     """One image with coords [..., 2]; coords far outside (and NaN-free
     infinities) give pure fill; warp_homography sends a CUDA image on the

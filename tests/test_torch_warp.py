@@ -213,6 +213,36 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     assert all(v == 0 for v in ws.launches.values())
 
 
+@pytest.mark.parametrize("variant", ["winx", "win3"])
+def test_run_entries_take_flat_and_batched_coords_as_pallas(variant):
+    """Flat coords [N, 2] (one row) and a batch [B, N, 2] give the Pallas
+    kernel's values on the same samples, in interpret mode."""
+    img, coords, _ = _case(16, (19, 23), (17, 13))
+    img2 = np.stack([img, img[::-1].copy()])
+    flat = coords.reshape(-1, 2)
+    entry = ws.bilinear_sample_pallas_win3 if variant == "win3" else ws.FORWARDS[variant]
+    jfn = jpw.bilinear_sample_pallas_win3 if variant == "win3" else JAX_KERNELS[variant]
+    ours = entry(torch.tensor(img), torch.tensor(flat), 0.5)
+    assert ours.shape == (17 * 13, 3)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(jfn(jnp.asarray(img), jnp.asarray(coords), 0.5, True)).reshape(-1, 3), atol=1e-5)
+    both = entry(torch.tensor(img2), torch.tensor(np.stack([flat, flat[::-1].copy()])), 0.5)
+    for b in range(2):
+        theirs = jfn(jnp.asarray(img2[b]), jnp.asarray(flat if b == 0 else flat[::-1].copy()), 0.5, True)
+        np.testing.assert_allclose(both[b].numpy(), np.asarray(theirs), atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["winx", "win3"])
+def test_run_entries_take_many_channels_as_pallas(variant):
+    """No channel limit: 65 channels on a CPU tensor give the Pallas kernel's
+    values, in interpret mode."""
+    img, coords, _ = _case(17, (11, 13), (5, 7), c=65)
+    entry = ws.bilinear_sample_pallas_win3 if variant == "win3" else ws.FORWARDS[variant]
+    jfn = jpw.bilinear_sample_pallas_win3 if variant == "win3" else JAX_KERNELS[variant]
+    ours = entry(torch.tensor(img), torch.tensor(coords), 0.5)
+    assert ours.shape == (5, 7, 65)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(jfn(jnp.asarray(img), jnp.asarray(coords), 0.5, True)), atol=1e-5)
+
+
 def _homography(rng):
     m = np.eye(3, dtype=np.float32) + rng.normal(0, 0.05, (3, 3)).astype(np.float32)
     m[2, :2] = rng.normal(0, 1e-3, 2)
