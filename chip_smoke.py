@@ -12,15 +12,19 @@ each of which exits non-zero when it fails:
    (the four dim=160 blocks at 16x186x248, fp32 and bf16; the eight view-warp
    kernels at 16 images x 8 views of 224x298 from 186x248x3, value and image
    gradient; win3 also against the exact warp) and at ragged shapes
-   (1x19x21; a 300-row source), and, for the run kernels (winx, win3) and
-   the others alike, one launch that mixes views with coords scattered over
-   the whole source, flat coords, and 37x45 frames;
+   (1x19x21; a 300-row source), and, for the run kernels (win, winx, win3)
+   and the others alike, one launch that mixes views with coords scattered
+   over the whole source (so the whole-image adjoint takes both its
+   shared-memory box and its direct branch: checked from its patch plan),
+   flat coords, and 37x45 frames;
 4. time each kernel with CUDA events beside its bound, its plain version
    and, where there is one, the one PyTorch call that computes it
    (``F.conv2d`` with groups, ``F.grid_sample``; for win3 the library call
-   computes the exact warp, not the split one); winx and win3 also as the
-   kernel alone (their C entry, no wrapper); check with torch.profiler that
-   the win3 entry is one launch;
+   computes the exact warp, not the split one); win, winx, win3 and the
+   whole-image adjoint also as the kernel alone (their C entry, no wrapper);
+   print the whole-image adjoint's patch plan (patches that sum in the
+   shared-memory box or scatter directly, global atomics of each); check
+   with torch.profiler that the win3 entry is one launch;
 5. sample the full 5-scale balloons pyramid at dim=160, batch 16, fp32,
    with seeded random weights, through the kernels: check shapes, finite
    values and the launch counts; profile a second walk (device time by
@@ -231,26 +235,42 @@ def grid_sample_inputs(img, coords):
     return img.permute(0, 3, 1, 2).contiguous(), grid.contiguous()
 
 
-def run_kernel(build, variant, img, coords, fill):
-    """One launch of the winx or win3 C entry on buffers made here, without
-    the wrapper's checks, copies and allocation: the kernel alone. Fails
-    unless a first launch returns success."""
+def run_kernel(build, entry, img, coords, fill, ct=None):
+    """A launcher of one C entry on buffers made here, without the wrapper's
+    checks, copies and allocation: the kernel alone. ``entry`` is a run
+    forward (``win_fwd``, ``winx_fwd``, ``win3_fwd``; fill ``fill``) or
+    ``whole_bwd`` (cotangent ``ct``, frames as wide as ``coords``' last sample
+    axis). Fails unless a first launch returns success."""
+    from sinddm_tpu_torch.ops.warp_sample import adjoint_patch
+
     b, h, w, c = img.shape
     coords3 = coords.reshape(b, -1, 2).contiguous()
     n = coords3.shape[1]
-    out = torch.empty((b, n, c), device=img.device)
-    fn = getattr(build.library("warp_sample"), f"sinddm_warp_{variant}_fwd")
+    fn = getattr(build.library("warp_sample"), f"sinddm_warp_{entry}")
     stream = torch.cuda.current_stream(img.device).cuda_stream
+    if entry.endswith("_bwd"):
+        src, out, frame_w = ct.reshape(b, n, c).contiguous(), torch.empty_like(img), coords.shape[-2]
+        args = (b, h, w, c, n, frame_w, adjoint_patch(n, frame_w)[1])
+    else:
+        src, out, args = img, torch.empty((b, n, c), device=img.device), (fill, b, h, w, c, n)
 
-    def launch():
-        return fn(img.data_ptr(), coords3.data_ptr(), out.data_ptr(), fill, b, h, w, c, n,
-                  img.device.index or 0, stream)
+    def launch():  # holds src, coords3 and out for as long as it is timed
+        return fn(src.data_ptr(), coords3.data_ptr(), out.data_ptr(), *args, img.device.index or 0, stream)
 
     err = launch()
     torch.cuda.synchronize()
     if err != 0:
-        fail(f"the {variant} C entry returned cudaError {err}")
+        fail(f"the {entry} C entry returned cudaError {err}")
     return launch
+
+
+def patch_plan(plan):
+    """One line of ``whole_adjoint_patches``' reckoning."""
+    total = plan["shared_atomics"] + plan["direct_atomics"]
+    return (f"patches of {plan['patch'][0]}x{plan['patch'][1]} samples: {plan['shared']} sum in the shared-memory box, "
+            f"{plan['direct']} scatter directly, {plan['empty']} empty; global atomics {plan['shared_atomics']} (box "
+            f"flush) + {plan['direct_atomics']} (direct) = {total}, against {plan['per_sample_atomics']} from a thread "
+            f"a sample ({total / max(plan['per_sample_atomics'], 1):.3f} of them)")
 
 
 def share_over(diff, tol):
@@ -456,6 +476,11 @@ def main() -> None:
                   ("frame 37x45", small_img, small_views, 0.0))
     results["warp_err"] = {}
     for case, img, coords, fill in warp_cases:
+        coords3 = coords.reshape(img.shape[0], -1, 2)
+        plan = ws.whole_adjoint_patches(coords3, coords.shape[-2], img.shape[1:3], 3)
+        say(f"[plan warp whole_bwd {case}] {patch_plan(plan)}")
+        if case == "mixed" and not (plan["shared"] and plan["direct"]):
+            fail(f"the mixed case does not reach both branches of the whole-image adjoint: {plan}")
         ct = torch.randn(coords.shape[:-1] + (3,), generator=gen, device="cuda")
         x_ref = img.clone().requires_grad_(True)
         ref = plain_warp(x_ref, coords, fill)
@@ -501,7 +526,7 @@ def main() -> None:
         if case == "main":
             results["warp_err"]["win3_fwd"], results["warp_err"]["win3_bwd"] = v_err, g_err
             results["win3_vs_exact"] = dict(value=e_err, grad=eg_err, grad_max=g_max)
-        del ct, x_ref, ref, g_ref, x_s3, ref3, g_ref3, x_in, out, g_out
+        del ct, x_ref, ref, g_ref, x_s3, ref3, g_ref3, x_in, out, g_out, coords3
 
     # ---- 4. times at the main path's shapes ---------------------------------
     for dtype, dname, rate in ((torch.float32, "fp32", peaks["fp32"]), (torch.bfloat16, "bf16", peaks["bf16"])):
@@ -560,8 +585,8 @@ def main() -> None:
         plain_b = time_ms(lambda: torch.autograd.grad(plain_out, x_plain, ct, retain_graph=True), reps=2, warm=1)
         coords3 = coords.reshape(BATCH, -1, 2)
         timed = [(f"{v}_fwd", (lambda fn=fn: fn(warp_img, coords, 1.0)), plain_f, lib_f) for v, fn in ws.FORWARDS.items()]
-        timed += [(f"{a}_bwd", (lambda a=a: ws.warp_adjoint(ct, coords3, warp_img.shape, a)), plain_b, lib_b)
-                  for a in ("whole", "win")]
+        timed += [(f"{a}_bwd", (lambda a=a: ws.warp_adjoint(ct, coords3, warp_img.shape, a, frame[1])), plain_b,
+                   lib_b) for a in ("whole", "win")]
         if n_views == VIEW_CHUNK:  # win3 beside its own plain version, at one launch of the path
             x_s3 = warp_img.clone().requires_grad_(True)
             out_s3 = plain_warp(x_s3, coords, 1.0, ws.bilinear_sample_split3)
@@ -578,8 +603,8 @@ def main() -> None:
                                       split3=entry.startswith("win3"))
             b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
             alone = ""
-            if entry.endswith("_fwd") and entry[:-4] in ws.RUN_KERNELS:  # the kernel alone: its C entry
-                alone_ms = time_ms(run_kernel(_build, entry[:-4], warp_img, coords, 1.0), reps=20)
+            if entry == "whole_bwd" or (entry.endswith("_fwd") and entry[:-4] in ws.RUN_KERNELS):
+                alone_ms = time_ms(run_kernel(_build, entry, warp_img, coords, 1.0, ct), reps=20)  # its C entry
                 alone = f"kernel_alone_ms {alone_ms:.4f} "
             say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} {alone}plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
                 f"MFLOP {flops / 1e6:.1f} MB {nbytes / 1e6:.1f} bound_ms {b_ms:.4f} ({b_by}) share of the bound "
@@ -589,6 +614,8 @@ def main() -> None:
                                               bound_by=b_by, shape=shape)
                 if alone:
                     results["warp"][entry]["kernel_alone_ms"] = alone_ms
+        plan = ws.whole_adjoint_patches(coords3, frame[1], (h_fin, w_fin), 3)
+        say(f"[plan warp whole_bwd {shape}] {patch_plan(plan)}")
         if n_views == VIEW_CHUNK:  # the win3 entry is one launch: the split happens in the kernel
             prof = profile_walk(lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0))
             if prof is None:

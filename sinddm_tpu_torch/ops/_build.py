@@ -45,7 +45,7 @@ SIGNATURES = {
     },
     "warp_sample": {
         "sinddm_warp_whole_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
-        "sinddm_warp_whole_bwd": [_P] * 3 + [_I] * 6 + [_P],
+        "sinddm_warp_whole_bwd": [_P] * 3 + [_I] * 8 + [_P],
         "sinddm_warp_win_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
         "sinddm_warp_winx_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
         "sinddm_warp_winb_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],

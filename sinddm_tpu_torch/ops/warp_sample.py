@@ -29,8 +29,14 @@ image b behind index b); the output is ``coords.shape[:-1] + (C,)`` and the
 adjoint sums over every view of an image. The TPU kernels' limits (H <= 256,
 4 MB of source) do not apply.
 
-``winx`` and ``win3`` run a block on a run of consecutive samples of one
-image, a thread on several samples with their channels.
+``win``, ``winx`` and ``win3`` run a block on a run of consecutive samples
+of one image, a thread on several samples with their channels. The
+whole-image adjoint runs a block on a 2-D patch of a view (the frame width
+is the last sample axis of ``coords``; flat coords are one row): it sums the
+patch's terms in a shared-memory box over the source pixels they touch and
+adds the box to the gradient with one coalesced atomic an element, or, where
+the box does not fit (coords scattered over the source), adds each term to
+the gradient directly (:func:`whole_adjoint_patches` reckons which).
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The adjoints accumulate with ``atomicAdd``, so
@@ -53,7 +59,10 @@ launches = {
 # the adjoint kernel of each forward
 ADJOINT = {"whole": "whole", "win": "win", "winx": "win", "winb": "win", "win3": "win3"}
 # the forwards that run a block on a run of samples (csrc/warp_sample.cu kRun)
-RUN_KERNELS = ("winx", "win3")
+RUN_KERNELS = ("win", "winx", "win3")
+# samples a block of the whole-image adjoint, and the floats its shared-memory
+# box holds (csrc/warp_sample.cu kPatch, kBoxFloats)
+PATCH, BOX_FLOATS = 1024, 8192
 
 
 def reset_launches() -> None:
@@ -115,7 +124,8 @@ def bilinear_sample_split3(img: torch.Tensor, coords: torch.Tensor, fill: float 
 
 
 def _check(img: torch.Tensor, coords: torch.Tensor):
-    """Validate and return (img4 [B,H,W,C], coords3 [B,N,2])."""
+    """Validate and return (img4 [B,H,W,C], coords3 [B,N,2], frame width):
+    the frame width is the last sample axis of ``coords`` (1 if it has none)."""
     if img.device.type not in ("cuda", "cpu"):
         raise ValueError(f"the warp runs on cuda or cpu tensors, got {img.device}")
     if img.dtype != torch.float32 or coords.dtype != torch.float32:
@@ -125,14 +135,14 @@ def _check(img: torch.Tensor, coords: torch.Tensor):
     if coords.shape[-1] != 2:
         raise ValueError(f"coords must end in (x, y), got {tuple(coords.shape)}")
     if img.ndim == 3:
-        img4, coords3 = img[None], coords.reshape(1, -1, 2)
+        img4, coords3, axes = img[None], coords.reshape(1, -1, 2), coords.shape[:-1]
     elif img.ndim == 4 and coords.ndim >= 2 and coords.shape[0] == img.shape[0]:
-        img4, coords3 = img, coords.reshape(img.shape[0], -1, 2)
+        img4, coords3, axes = img, coords.reshape(img.shape[0], -1, 2), coords.shape[1:-1]
     else:
         raise ValueError(f"img {tuple(img.shape)} does not go with coords {tuple(coords.shape)}")
     if coords3.shape[1] * img4.shape[0] * img4.shape[3] >= 2**31 or img4.numel() >= 2**31:
         raise ValueError("warp shapes overflow int32 indexing")
-    return img4, coords3
+    return img4, coords3, max(axes[-1], 1) if axes else 1
 
 
 def _plain(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fill: float) -> torch.Tensor:
@@ -140,12 +150,83 @@ def _plain(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fill: float)
     return torch.stack([one(img4[b], coords3[b], fill) for b in range(img4.shape[0])])
 
 
+def _float2(coords3: torch.Tensor) -> torch.Tensor:
+    """Contiguous coords at an 8-byte address, copied where they are not: the
+    run kernels and the whole-image adjoint load (x, y) as one float2."""
+    coords3 = coords3.contiguous()
+    return coords3.clone() if coords3.data_ptr() % 8 else coords3
+
+
+def adjoint_patch(n: int, frame_w: int):
+    """(rows, columns) of the frame that a block of the whole-image adjoint
+    takes, for ``n`` samples an image in frames ``frame_w`` wide: PATCH
+    samples, 32 x 32, or as many columns as the frame's rows leave room for
+    (1 x 1024 on a one-row frame, flat coords)."""
+    rows = max(n // frame_w, 1)
+    ph = min(32, 1 << (rows - 1).bit_length())
+    return ph, PATCH // ph
+
+
+def _hat_taps(v: torch.Tensor, n: int):
+    """csrc/warp_sample.cu hat_taps on a tensor: the two tap indices (clamped)
+    and whether each carries weight."""
+    inside = (v > -1) & (v < n)
+    f = torch.floor(torch.where(inside, v, torch.zeros_like(v)))
+    i = f.to(torch.int64)
+    w1 = inside & (v != f) & (i + 1 <= n - 1)
+    return i.clamp_min(0), (i + 1).clamp(0, n - 1), inside & (i >= 0), w1
+
+
+def whole_adjoint_patches(coords3: torch.Tensor, frame_w: int, hw, c: int) -> dict:
+    """How the whole-image adjoint kernel takes these coords [B, N, 2], the
+    samples in frames ``frame_w`` wide, on a source ``hw`` of ``c`` channels,
+    reckoned with tensor ops as the kernel decides: its patches (``patch``,
+    rows x columns), how many sum in the shared-memory box (``shared``), how
+    many add their terms to the gradient directly (``direct``) and how many
+    have no weighted tap (``empty``); the global atomics of each kind
+    (``shared_atomics``: a channel of each box pixel some term touches, as
+    the flush skips zero sums; ``direct_atomics``: a channel of each term);
+    and ``per_sample_atomics``, the terms x c that a thread a sample adds."""
+    b, n = coords3.shape[:2]
+    h, w = hw
+    ph, pw = adjoint_patch(n, frame_w)
+    rows = n // frame_w
+    tr, tc = -(-rows // ph), -(-frame_w // pw)
+    grid = torch.full((b, tr * ph, tc * pw, 2), -2.0, device=coords3.device)
+    grid[:, :rows, :frame_w] = coords3.reshape(b, rows, frame_w, 2)
+    # [b * patches, samples of a patch, 2]
+    grid = grid.reshape(b, tr, ph, tc, pw, 2).transpose(2, 3).reshape(b * tr * tc, ph * pw, 2)
+    y0, y1, wy0, wy1 = _hat_taps(grid[..., 1], h)
+    x0, x1, wx0, wx1 = _hat_taps(grid[..., 0], w)
+    live = (wy0 | wy1) & (wx0 | wx1)
+    big = torch.iinfo(torch.int64).max
+    x_lo = torch.where(live, torch.where(wx0, x0, x1), big).amin(1)
+    x_hi = torch.where(live, torch.where(wx1, x1, x0), -1).amax(1)
+    y_lo = torch.where(live, torch.where(wy0, y0, y1), big).amin(1)
+    y_hi = torch.where(live, torch.where(wy1, y1, y0), -1).amax(1)
+    empty = x_hi < 0
+    fits = ~empty & ((x_hi - x_lo + 1) * (y_hi - y_lo + 1) * c <= BOX_FLOATS)
+    # every term: (patch, pixel) for each tap pair that carries weight
+    patch = torch.arange(grid.shape[0], device=grid.device)[:, None].expand_as(y0)
+    keys, in_box = [], []
+    for yy, wy in ((y0, wy0), (y1, wy1)):
+        for xx, wx in ((x0, wx0), (x1, wx1)):
+            term = wy & wx
+            keys.append((patch * (h * w) + yy * w + xx)[term])
+            in_box.append(fits[:, None].expand_as(term)[term])
+    keys, in_box = torch.cat(keys), torch.cat(in_box)
+    return {
+        "patch": (ph, pw), "shared": int(fits.sum()), "direct": int((~fits & ~empty).sum()),
+        "empty": int(empty.sum()), "shared_atomics": int(torch.unique(keys[in_box]).numel()) * c,
+        "direct_atomics": int((~in_box).sum()) * c, "per_sample_atomics": keys.numel() * c,
+    }
+
+
 def _launch_forward(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fill: float) -> torch.Tensor:
     b, h, w, c = img4.shape
     n = coords3.shape[1]
-    img4, coords3 = img4.contiguous(), coords3.contiguous()
-    if variant in RUN_KERNELS and coords3.data_ptr() % 8:  # the kernel loads (x, y) as one float2
-        coords3 = coords3.clone()
+    img4 = img4.contiguous()
+    coords3 = _float2(coords3) if variant in RUN_KERNELS else coords3.contiguous()
     out = torch.empty((b, n, c), dtype=torch.float32, device=img4.device)
     lib = _build.library("warp_sample")
     err = getattr(lib, f"sinddm_warp_{variant}_fwd")(
@@ -157,21 +238,30 @@ def _launch_forward(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fil
     return out
 
 
-def warp_adjoint(ct: torch.Tensor, coords3: torch.Tensor, img_shape, variant: str = "win") -> torch.Tensor:
+def warp_adjoint(ct: torch.Tensor, coords3: torch.Tensor, img_shape, variant: str = "win",
+                 frame_w=None) -> torch.Tensor:
     """Image gradient [B, H, W, C] of the warp for cotangent ``ct`` [B, N, C]
     at ``coords3`` [B, N, 2], summed over all N samples of each image, by the
     adjoint kernel ``variant`` (``whole``, ``win`` or ``win3``). The kernel
-    zeroes the gradient and scatters into it with ``atomicAdd``."""
+    zeroes the gradient and scatters into it with ``atomicAdd``. ``whole``
+    takes the samples as frames ``frame_w`` wide (it must divide N; None:
+    one row of N) and works on 2-D patches of them."""
     b, h, w, c = img_shape
     n = coords3.shape[1]
+    frame_w = max(n, 1) if frame_w is None else frame_w
+    if variant == "whole" and (frame_w <= 0 or n % frame_w):
+        raise ValueError(f"frame width {frame_w} does not divide the {n} samples an image")
     if not ct.is_cuda:
         raise ValueError("warp_adjoint launches a kernel: it takes CUDA tensors")
     ct = ct.reshape(b, n, c).to(torch.float32).contiguous()
-    coords3 = coords3.contiguous()
+    if variant == "whole":
+        coords3, extra = _float2(coords3), (frame_w, adjoint_patch(n, frame_w)[1])
+    else:
+        coords3, extra = coords3.contiguous(), ()
     gimg = torch.empty((b, h, w, c), dtype=torch.float32, device=ct.device)
     lib = _build.library("warp_sample")
     err = getattr(lib, f"sinddm_warp_{variant}_bwd")(
-        ct.data_ptr(), coords3.data_ptr(), gimg.data_ptr(), b, h, w, c, n,
+        ct.data_ptr(), coords3.data_ptr(), gimg.data_ptr(), b, h, w, c, n, *extra,
         ct.device.index or 0, torch.cuda.current_stream(ct.device).cuda_stream,
     )
     _build.check(lib, err, f"bilinear_sample_pallas_{variant} adjoint")
@@ -184,24 +274,25 @@ class _WarpSample(torch.autograd.Function):
     gradient to the coordinates or the fill."""
 
     @staticmethod
-    def forward(ctx, img4, coords3, fill, variant):
+    def forward(ctx, img4, coords3, fill, variant, frame_w):
         ctx.save_for_backward(coords3)
         ctx.img_shape = tuple(img4.shape)
-        ctx.variant = variant
+        ctx.variant, ctx.frame_w = variant, frame_w
         return _launch_forward(variant, img4, coords3, fill)
 
     @staticmethod
     def backward(ctx, ct):
         (coords3,) = ctx.saved_tensors
-        return warp_adjoint(ct, coords3, ctx.img_shape, ADJOINT[ctx.variant]), None, None, None
+        gimg = warp_adjoint(ct, coords3, ctx.img_shape, ADJOINT[ctx.variant], ctx.frame_w)
+        return gimg, None, None, None, None
 
 
 def _sample(variant: str, img: torch.Tensor, coords: torch.Tensor, fill: float) -> torch.Tensor:
-    img4, coords3 = _check(img, coords)
+    img4, coords3, frame_w = _check(img, coords)
     if img4.device.type == "cpu":
         out = _plain(variant, img4, coords3, float(fill))
     else:
-        out = _WarpSample.apply(img4, coords3.detach(), float(fill), variant)
+        out = _WarpSample.apply(img4, coords3.detach(), float(fill), variant, frame_w)
     return out.reshape(coords.shape[:-1] + (img4.shape[3],))
 
 

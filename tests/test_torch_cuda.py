@@ -178,7 +178,8 @@ def test_win3_kernels_match_split3_plain_and_stay_near_exact(gen, b, h, w, c, v,
 
 
 def _run_case(gen, case, c):
-    """(img, coords, fill) for the run kernels (winx, win3), two images: the
+    """(img, coords, fill) for the run kernels (win, winx, win3) and the
+    whole-image warp with its patch adjoint, two images: the
     path's views of a 120x160 source (224x298 frames); coords scattered over
     -0.2 .. 1.3 of a 300-row source; both in one launch; 37x45 frames (a
     run of 1024 samples ends inside an image); the views as flat coords."""
@@ -210,13 +211,24 @@ def _run_case(gen, case, c):
 
 @pytest.mark.parametrize("c", [1, 3, 4, 5, 65])
 @pytest.mark.parametrize("case", ["views", "scattered", "mixed", "frame37x45", "flat"])
-@pytest.mark.parametrize("variant", ["winx", "win3"])
+@pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole"])
 def test_run_kernels_match_plain(gen, variant, case, c):
-    """winx and win3 run a block on 1024 consecutive samples of an image, a
-    thread on 8 samples: value and image gradient against the plain versions
-    at the bounds above, C = 3 (the kernels' compiled case) and others, up to
-    65 (outputs written straight from the thread, not staged)."""
+    """win, winx and win3 run a block on 1024 consecutive samples of an
+    image, a thread on 8 samples; the whole-image adjoint runs a block on a
+    2-D patch of a view (1 x 1024 samples on flat coords). Value and image
+    gradient against the plain versions at the bounds above, C = 3 (the
+    kernels' compiled case) and others, up to 65 (outputs written straight
+    from the thread, not staged). The whole-image adjoint takes its
+    shared-memory box wherever a patch's box fits, and the scattered and
+    mixed cases reach its branch for a box that does not fit (asserted from
+    its patch plan)."""
     img, coords, fill = _run_case(gen, case, c)
+    if variant == "whole":
+        plan = ws.whole_adjoint_patches(coords.reshape(2, -1, 2), coords.shape[-2], img.shape[1:3], c)
+        if case in ("scattered", "mixed"):
+            assert plan["direct"] > 0
+        if case != "scattered" and c == 3:
+            assert plan["shared"] > 0
     fn = ws.FORWARDS.get(variant, ws.bilinear_sample_pallas_win3)
     ct = torch.randn(coords.shape[:-1] + (c,), generator=gen, device="cuda")
     ws.reset_launches()
@@ -235,11 +247,12 @@ def test_run_kernels_match_plain(gen, variant, case, c):
         assert (grad - gexact).abs().max().item() <= 7e-5 * g_max
 
 
-@pytest.mark.parametrize("variant", ["winx", "win3"])
+@pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole"])
 def test_run_kernels_take_unaligned_coords_and_outputs(gen, variant):
-    """Coords 4 bytes off the 8 the kernel loads them at, and 1111-sample
-    images of 3 channels, so each image's outputs start at another alignment
-    (the stores' scalar head and tail)."""
+    """Coords 4 bytes off the 8 the kernels load them at (the run forwards
+    and the whole-image adjoint), and 1111-sample images of 3 channels, so
+    each image's outputs start at another alignment (the stores' scalar head
+    and tail); value and image gradient."""
     shape = (3, 57, 61, 3)
     img = torch.rand(shape, generator=gen, device="cuda")
     views = (torch.rand((3, 11, 101, 2), generator=gen, device="cuda") * torch.tensor([61.0, 57.0], device="cuda"))
@@ -249,9 +262,11 @@ def test_run_kernels_take_unaligned_coords_and_outputs(gen, variant):
     assert coords.data_ptr() % 8
     fn = ws.FORWARDS.get(variant, ws.bilinear_sample_pallas_win3)
     plain = ws.bilinear_sample_split3 if variant == "win3" else bilinear_sample_mm
-    out = fn(img, coords, 1.0)
-    ref = torch.stack([plain(img[i], views[i], 1.0) for i in range(3)])
+    ct = torch.randn(views.shape[:-1] + (3,), generator=gen, device="cuda")
+    out, grad = _value_and_grad(fn, img, coords, 1.0, ct)
+    ref, gref = _per_image(plain, img, views, 1.0, ct)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert (grad - gref).abs().max().item() <= 1e-5 * max(gref.abs().max().item(), 1.0)
     torch.testing.assert_close(fn(img, views, 1.0), out, atol=0, rtol=0)
 
 

@@ -18,6 +18,8 @@
   product with an inverse, atol 1e-5 + rtol 1e-5; colour-op gradients 1e-4).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,7 +215,7 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     assert all(v == 0 for v in ws.launches.values())
 
 
-@pytest.mark.parametrize("variant", ["winx", "win3"])
+@pytest.mark.parametrize("variant", ["win", "winx", "win3"])
 def test_run_entries_take_flat_and_batched_coords_as_pallas(variant):
     """Flat coords [N, 2] (one row) and a batch [B, N, 2] give the Pallas
     kernel's values on the same samples, in interpret mode."""
@@ -231,7 +233,7 @@ def test_run_entries_take_flat_and_batched_coords_as_pallas(variant):
         np.testing.assert_allclose(both[b].numpy(), np.asarray(theirs), atol=1e-5)
 
 
-@pytest.mark.parametrize("variant", ["winx", "win3"])
+@pytest.mark.parametrize("variant", ["win", "winx", "win3"])
 def test_run_entries_take_many_channels_as_pallas(variant):
     """No channel limit: 65 channels on a CPU tensor give the Pallas kernel's
     values, in interpret mode."""
@@ -241,6 +243,67 @@ def test_run_entries_take_many_channels_as_pallas(variant):
     ours = entry(torch.tensor(img), torch.tensor(coords), 0.5)
     assert ours.shape == (5, 7, 65)
     np.testing.assert_allclose(ours.numpy(), np.asarray(jfn(jnp.asarray(img), jnp.asarray(coords), 0.5, True)), atol=1e-5)
+
+
+def _taps(v, n):
+    """The source indices of a coordinate's weighted taps along an axis of n."""
+    if not -1 < v < n:
+        return []
+    i = math.floor(v)
+    return [t for t, ok in ((i, i >= 0), (i + 1, i + 1 <= n - 1 and v != i)) if ok]
+
+
+def _plan_by_loop(coords3, frame_w, hw, c):
+    """``whole_adjoint_patches`` one patch and one sample at a time."""
+    b, n = coords3.shape[:2]
+    ph, pw = ws.adjoint_patch(n, frame_w)
+    rows = n // frame_w
+    plan = dict.fromkeys(("shared", "direct", "empty", "shared_atomics", "direct_atomics", "per_sample_atomics"), 0)
+    for i in range(b):
+        for r0 in range(0, rows, ph):
+            for c0 in range(0, frame_w, pw):
+                terms = [(yy, xx) for r in range(r0, min(r0 + ph, rows)) for col in range(c0, min(c0 + pw, frame_w))
+                         for x, y in [coords3[i, r * frame_w + col].tolist()]
+                         for yy in _taps(y, hw[0]) for xx in _taps(x, hw[1])]
+                plan["per_sample_atomics"] += len(terms) * c
+                if not terms:
+                    plan["empty"] += 1
+                    continue
+                ys, xs = zip(*terms)
+                if (max(ys) - min(ys) + 1) * (max(xs) - min(xs) + 1) * c <= ws.BOX_FLOATS:
+                    plan["shared"] += 1
+                    plan["shared_atomics"] += len(set(terms)) * c
+                else:
+                    plan["direct"] += 1
+                    plan["direct_atomics"] += len(terms) * c
+    return plan
+
+
+@pytest.mark.parametrize("layout,c", [("frames", 3), ("frames", 5), ("flat", 3)])
+def test_whole_adjoint_patch_plan_matches_a_loop(layout, c):
+    """The whole-image adjoint's host-side logic: the frame width the entries
+    read from coords, the patch shape, and the reckoning of which patches sum
+    in the shared-memory box and which scatter directly (a view's
+    magnified, rotated grid fits; coords scattered over a 60x80 source do
+    not), against a plain loop over patches and samples."""
+    rng = np.random.default_rng(18)
+    rows, cols = np.meshgrid(np.arange(37.0), np.arange(45.0), indexing="ij")
+    view = np.stack([0.55 * cols + 0.1 * rows + 3.0, 0.5 * rows - 0.05 * cols + 2.0], axis=-1)
+    scattered = rng.uniform(-0.2, 1.3, (37, 45, 2)) * [80.0, 60.0]
+    coords = torch.tensor(np.stack([np.stack([view, scattered]), np.stack([scattered, view + 10.5])]), dtype=torch.float32)
+    if layout == "flat":
+        coords = coords.reshape(2, -1, 2)
+    img4, coords3, frame_w = ws._check(torch.zeros(2, 60, 80, c), coords)
+    assert frame_w == (45 if layout == "frames" else 2 * 37 * 45) and coords3.shape == (2, 2 * 37 * 45, 2)
+    assert ws.adjoint_patch(coords3.shape[1], frame_w) == ((32, 32) if layout == "frames" else (1, 1024))
+    assert ws.adjoint_patch(8 * 224 * 298, 298) == (32, 32) and ws.adjoint_patch(3 * 7, 7) == (4, 256)
+    plan = ws.whole_adjoint_patches(coords3, frame_w, (60, 80), c)
+    assert plan.pop("patch") == ws.adjoint_patch(coords3.shape[1], frame_w)
+    assert plan == _plan_by_loop(coords3, frame_w, (60, 80), c)
+    assert plan["direct"] > 0 and (plan["shared"] > 0 or layout == "flat")
+    assert ws._check(torch.zeros(5, 6, 3), torch.zeros(2))[2] == 1
+    with pytest.raises(ValueError, match="frame width"):
+        ws.warp_adjoint(torch.zeros(1, 16, 3), torch.zeros(1, 16, 2), (1, 5, 6, 3), "whole", 5)
 
 
 def _homography(rng):
