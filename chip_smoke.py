@@ -12,16 +12,16 @@ each of which exits non-zero when it fails:
    (the four dim=160 blocks at 16x186x248, fp32 and bf16; the eight view-warp
    kernels at 16 images x 8 views of 224x298 from 186x248x3, value and image
    gradient; win3 also against the exact warp) and at ragged shapes
-   (1x19x21; a 300-row source), and, for the run kernels (win, winx, win3)
-   and the others alike, one launch that mixes views with coords scattered
-   over the whole source (so the whole-image adjoint takes both its
-   shared-memory box and its direct branch: checked from its patch plan),
-   flat coords, and 37x45 frames;
+   (1x19x21; a 300-row source), and, for every warp kernel, one launch
+   that mixes views with coords scattered over the whole source (so the
+   whole-image adjoint takes both its shared-memory box and its direct
+   branch: checked from its patch plan), flat coords, and 37x45 frames;
 4. time each kernel with CUDA events beside its bound, its plain version
    and, where there is one, the one PyTorch call that computes it
    (``F.conv2d`` with groups, ``F.grid_sample``; for win3 the library call
-   computes the exact warp, not the split one); win, winx, win3 and the
-   whole-image adjoint also as the kernel alone (their C entry, no wrapper);
+   computes the exact warp, not the split one); the five warp forwards and
+   the whole-image adjoint also as the kernel alone (their C entry, no
+   wrapper);
    print the whole-image adjoint's patch plan (patches that sum in the
    shared-memory box or scatter directly, global atomics of each); check
    with torch.profiler that the win3 entry is one launch;
@@ -237,10 +237,11 @@ def grid_sample_inputs(img, coords):
 
 def run_kernel(build, entry, img, coords, fill, ct=None):
     """A launcher of one C entry on buffers made here, without the wrapper's
-    checks, copies and allocation: the kernel alone. ``entry`` is a run
-    forward (``win_fwd``, ``winx_fwd``, ``win3_fwd``; fill ``fill``) or
-    ``whole_bwd`` (cotangent ``ct``, frames as wide as ``coords``' last sample
-    axis). Fails unless a first launch returns success."""
+    checks, copies and allocation: the kernel alone. ``entry`` is a forward
+    (``whole_fwd``, ``win_fwd``, ``winx_fwd``, ``winb_fwd``, ``win3_fwd``;
+    fill ``fill``) or ``whole_bwd`` (cotangent ``ct``, frames as wide as
+    ``coords``' last sample axis). Fails unless a first launch returns
+    success."""
     from sinddm_tpu_torch.ops.warp_sample import adjoint_patch
 
     b, h, w, c = img.shape
@@ -461,9 +462,9 @@ def main() -> None:
     rotated = wp.homography_coords(
         wp.crop_resize_matrix(0.0, 0.0, 300.0, 23.0, (17, 13), device="cuda")
         @ wp.affine_matrix(torch.tensor(40.0, device="cuda"), (0.0, 0.0), (17, 13)), (17, 13))
-    # the run kernels' (winx, win3) other cases: one launch with views and
-    # coords scattered over the whole source; flat coords; 37x45 frames, where
-    # a run of 1024 samples ends inside an image
+    # the warp kernels' other cases: one launch with views and coords
+    # scattered over the whole source; flat coords; 37x45 frames, where a run
+    # of 1024 samples ends inside an image
     main_coords = view_coords(0, VIEW_CHUNK)
     scattered = (torch.rand((BATCH, 1) + frame + (2,), generator=gen, device="cuda") * 1.5 - 0.2) * torch.tensor(
         [float(w_fin), float(h_fin)], device="cuda")
@@ -603,7 +604,7 @@ def main() -> None:
                                       split3=entry.startswith("win3"))
             b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
             alone = ""
-            if entry == "whole_bwd" or (entry.endswith("_fwd") and entry[:-4] in ws.RUN_KERNELS):
+            if entry == "whole_bwd" or entry.endswith("_fwd"):
                 alone_ms = time_ms(run_kernel(_build, entry, warp_img, coords, 1.0, ct), reps=20)  # its C entry
                 alone = f"kernel_alone_ms {alone_ms:.4f} "
             say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} {alone}plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "

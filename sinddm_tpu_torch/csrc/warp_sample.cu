@@ -23,14 +23,15 @@
 // image (the whole image, or a 128-row window of it), because a gather is
 // slow there. A hat row has at most two non-zero entries, so here each
 // output pixel reads two rows x two columns directly. What stays distinct is
-// what is distinct there:
-//   whole computes a pixel's C channels in one thread (the TPU kernel builds
-//         the taps once a tile and loops over channels), rows first and the
-//         sum over x last;
+// what is distinct there, the summation order of a sample's value:
+//   whole rows first and the sum over x last (the TPU kernel's A @ img slab
+//         and its sum(slab * B));
 //   win   rows first, sum over x last;
 //   winx  interpolates along x first and sums over y last (another fp32
 //         summation order);
-//   winb  is winx with all C channels of a pixel in one thread;
+//   winb  is winx in its order (the TPU kernel batches a pixel's channels
+//         into one contraction; here every forward keeps a sample's channels
+//         in one thread);
 //   win3  is win with the products split into bf16 parts: image and row
 //         weights as hi = bf16(v), lo = bf16(v - hi), the row sum as
 //         a_hi*i_hi + a_hi*i_lo + a_lo*i_hi (lo*lo dropped) with fp32 sums, the
@@ -48,23 +49,23 @@
 // source (a few hundred KB an image) stays in L2, so the gathers and the
 // atomics are L2 traffic.
 //
-// win, winx and win3 (the guided default and its two other summation
-// orders) run a block on a run of 1024 consecutive samples, a thread 8
-// samples with their channels in registers (taps and weight splits formed
-// once a sample), 32-bit indices, one division a block and none a thread. On
-// the card the gathers do not bound them, the per-sample stream and its
-// latency do: coords in and outputs out (the bytes bound). So a thread keeps
-// its 8 samples' loads in flight together, coords load as float2, outputs
-// leave through shared memory as 16-byte stores, each warp-wide and
-// contiguous, and win3 splits the fp32 image in the kernel (one launch, no
-// split passes). 2-D patches of a view with their source box staged in
-// shared memory (cp.async) measured slower for these forwards: cheaper
-// gathers did not repay the box's reduction, barriers and copy (PERF.md).
+// All five forwards run one skeleton (run_fwd) in their own kernel, so a
+// profiler still tells them apart: a block on a run of 1024 consecutive
+// samples, a thread 8 samples with their channels in registers (taps and
+// weight splits formed once a sample), 32-bit indices, one division a block
+// and none a thread. On the card the gathers do not bound them, the
+// per-sample stream and its latency do: coords in and outputs out (the
+// bytes bound). So a thread keeps its 8 samples' loads in flight together,
+// coords load as float2, outputs leave through shared memory as 16-byte
+// stores, each warp-wide and contiguous, a tap without weight is not read,
+// and win3 splits the fp32 image in the kernel (one launch, no split
+// passes). 2-D patches of a view with their source box staged in shared
+// memory (cp.async) measured slower for these forwards: cheaper gathers did
+// not repay the box's reduction, barriers and copy (PERF.md).
 // The whole-image adjoint is the other way round: its atomics, not
 // its stream, bound it, so it takes a 2-D patch of a view and sums the
 // patch's terms in a shared-memory box before one coalesced global atomic
-// an element. whole, winb and the win and win3 adjoints still run a thread a
-// sample (or a sample-channel).
+// an element. The win and win3 adjoints still run a thread a sample-channel.
 //
 // C interface, loaded with ctypes: every entry returns the cudaError_t of
 // its launch (0 on success) and never synchronises.
@@ -129,56 +130,7 @@ __device__ __forceinline__ Split split_bf16(float v) {
   return s;
 }
 
-// img [B, H, W, C], coords [B, N, 2], out [B, N, C]; one thread per (b, q)
-// walks the C channels of its four taps. Rows first: a_x = A-weighted column
-// sample at each x tap, then the sum over x, as the TPU kernel's A @ img
-// slab and its sum(slab * B).
-__global__ void __launch_bounds__(kWarpThreads)
-warp_whole_fwd_kernel(const float* __restrict__ img, const float* __restrict__ coords,
-                      float* __restrict__ out, float fill, int B, int H, int W, int C, int N) {
-  const long long p = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
-  if (p >= (long long)B * N) return;
-  const int b = (int)(p / N);
-  const Taps tx = hat_taps(coords[2 * p], W);
-  const Taps ty = hat_taps(coords[2 * p + 1], H);
-  const float* im = img + (size_t)b * H * W * C;
-  const float* p00 = im + ((size_t)ty.i0 * W + tx.i0) * C;
-  const float* p01 = im + ((size_t)ty.i0 * W + tx.i1) * C;
-  const float* p10 = im + ((size_t)ty.i1 * W + tx.i0) * C;
-  const float* p11 = im + ((size_t)ty.i1 * W + tx.i1) * C;
-  float* o = out + p * C;
-  for (int c = 0; c < C; ++c) {
-    const float a0 = fmaf(ty.w1, p10[c], ty.w0 * p00[c]);
-    const float a1 = fmaf(ty.w1, p11[c], ty.w0 * p01[c]);
-    o[c] = blend_fill(fmaf(a1, tx.w1, a0 * tx.w0), ty, tx, fill);
-  }
-}
-
-// winx with the channels batched: one thread per (b, q) computes the tap
-// weights once and walks the C contiguous channels of each of the four taps.
-__global__ void __launch_bounds__(kWarpThreads)
-warp_winb_fwd_kernel(const float* __restrict__ img, const float* __restrict__ coords,
-                     float* __restrict__ out, float fill, int B, int H, int W, int C, int N) {
-  const long long p = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
-  if (p >= (long long)B * N) return;
-  const int b = (int)(p / N);
-  const Taps tx = hat_taps(coords[2 * p], W);
-  const Taps ty = hat_taps(coords[2 * p + 1], H);
-  const float* im = img + (size_t)b * H * W * C;
-  const float* p00 = im + ((size_t)ty.i0 * W + tx.i0) * C;
-  const float* p01 = im + ((size_t)ty.i0 * W + tx.i1) * C;
-  const float* p10 = im + ((size_t)ty.i1 * W + tx.i0) * C;
-  const float* p11 = im + ((size_t)ty.i1 * W + tx.i1) * C;
-  const float rest = fill * (1.f - (ty.w0 + ty.w1) * (tx.w0 + tx.w1));
-  float* o = out + p * C;
-  for (int c = 0; c < C; ++c) {
-    const float s0 = fmaf(tx.w1, p01[c], tx.w0 * p00[c]);
-    const float s1 = fmaf(tx.w1, p11[c], tx.w0 * p10[c]);
-    o[c] = fmaf(s1, ty.w1, s0 * ty.w0) + rest;
-  }
-}
-
-// Adjoint of all three: gimg[b, y, x, c] += A[q, y] * ct[b, q, c] * B[q, x]
+// Adjoint of win, winx and winb: gimg[b, y, x, c] += A[q, y] * ct[b, q, c] * B[q, x]
 // over every pixel q of every view of image b. gimg is zeroed by the caller
 // (the C entry below). One thread per (b, q, c), up to four atomics.
 __global__ void __launch_bounds__(kWarpThreads)
@@ -212,7 +164,7 @@ __device__ __forceinline__ float mul3(const Split& a, const Split& b) {
   return fmaf(a.lo, b.hi, fmaf(a.hi, b.lo, a.hi * b.hi));
 }
 
-// ---- the win, winx and win3 forwards: a run of samples a block -------------
+// ---- the five forwards: a run of samples a block ----------------------------
 //
 // A block computes kRun consecutive samples of one image (blockIdx.x =
 // image * runs + run), a thread kRowsPerWarp samples with their C channels
@@ -244,8 +196,8 @@ __device__ __forceinline__ void store_row(float* dst, const float* src, int n, i
   for (int i = head + 4 * nv + lane; i < n; i += kTileW) dst[i] = src[i];
 }
 
-// A tap's value, 0 where the tap carries no weight (the kernels that run a
-// thread a sample read a clamped pixel there and multiply it by 0).
+// A tap's value, 0 where the tap carries no weight, with no load (a clamped
+// pixel times a zero weight gives the same value up to the sign of a zero).
 __device__ __forceinline__ float tap_f32(const float* src, int i, bool ok) {
   return ok ? __ldg(src + i) : 0.f;
 }
@@ -268,12 +220,13 @@ __device__ __forceinline__ Split2 tap_split2(const float* src, int i, bool ok_i,
   return s;
 }
 
-// The summation order of a sample's value, one per forward on the run skeleton:
-//   kXFirst (winx): along x first, s_y = B-weighted row sample at each y
-//            tap, then the sum over y;
-//   kYFirst (win):  rows first, a_x = A-weighted column sample at each x tap,
-//            then the sum over x, as the TPU kernel's A @ img slab and its
-//            sum(slab * B);
+// The summation order of a sample's value on the run skeleton:
+//   kXFirst (winx, winb): along x first, s_y = B-weighted row sample at each
+//            y tap, then the sum over y, as _fwd_kernel_winb's win @ BT and
+//            its sum with AT;
+//   kYFirst (win, whole): rows first, a_x = A-weighted column sample at each
+//            x tap, then the sum over x, as _fwd_kernel's A @ img slab and
+//            its sum(slab * B);
 //   kSplit3 (win3): at each x tap the row sum over the two y taps formed dot
 //            by dot (a_hi.i_hi, a_hi.i_lo, a_lo.i_hi, each over y) and the
 //            three dots added, then the column weights (fp32, unsplit) take
@@ -324,8 +277,8 @@ __device__ __forceinline__ void run_sample(const float* src, const int (&off)[4]
 
 // img [B, H, W, C] fp32, coords [B, N, 2], out [B, N, C]; block
 // b * runs + r computes samples [r * kRun, (r + 1) * kRun) of image b. kC = 3
-// is the guided path's; kC = 0 takes C at run time. The body of
-// warp_winx_fwd_kernel, warp_win_fwd_kernel and warp_win3_fwd_kernel.
+// is the guided path's; kC = 0 takes C at run time. The body of every
+// forward kernel below.
 template <int kC, Order kOrder>
 __device__ __forceinline__ void run_fwd(const float* __restrict__ img, const float2* __restrict__ coords,
                                         float* __restrict__ out, float fill, int H, int W, int C_,
@@ -385,9 +338,25 @@ __device__ __forceinline__ void run_fwd(const float* __restrict__ img, const flo
   }
 }
 
+// One kernel a forward, so that a profiler tells them apart; two share each
+// of the first two orders.
 template <int kC>
 __global__ void __launch_bounds__(kTileThreads, 8)
 warp_winx_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
+                     float* __restrict__ out, float fill, int H, int W, int C, int N, int runs) {
+  run_fwd<kC, Order::kXFirst>(img, coords, out, fill, H, W, C, N, runs);
+}
+
+// Replaces _fwd_kernel_winb, which batches winx's per-channel window dots
+// into one contraction. Here every forward computes a sample's channels in
+// one thread already, so winb is winx's order in a kernel of its own. Like
+// the others it is bound by the per-sample stream, not by its gathers: on
+// the run skeleton its coords load as float2, 8 samples a thread in
+// flight, its outputs leave as 16-byte stores, and an unweighted tap is not
+// read.
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads, 8)
+warp_winb_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
                      float* __restrict__ out, float fill, int H, int W, int C, int N, int runs) {
   run_fwd<kC, Order::kXFirst>(img, coords, out, fill, H, W, C, N, runs);
 }
@@ -396,6 +365,18 @@ template <int kC>
 __global__ void __launch_bounds__(kTileThreads, 8)
 warp_win_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
                     float* __restrict__ out, float fill, int H, int W, int C, int N, int runs) {
+  run_fwd<kC, Order::kYFirst>(img, coords, out, fill, H, W, C, N, runs);
+}
+
+// Replaces _fwd_kernel (bilinear_sample_pallas), the whole-image warp: the
+// TPU kernel holds the whole image in VMEM (H <= 256, 4 MB) and forms
+// A @ img then sum(slab * B). Here it is win's order on the run skeleton,
+// with no limit on the source but int32 indexing; it is bound by the
+// per-sample stream, as win is, and the skeleton answers it the same way.
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads, 8)
+warp_whole_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
+                      float* __restrict__ out, float fill, int H, int W, int C, int N, int runs) {
   run_fwd<kC, Order::kYFirst>(img, coords, out, fill, H, W, C, N, runs);
 }
 
@@ -601,24 +582,19 @@ warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ c
 
 inline int blocks_for(long long n) { return (int)((n + kWarpThreads - 1) / kWarpThreads); }
 
-// One launch of the run-skeleton forward of order kOrder: B x runs blocks
-// of (kTileW, kWarps) threads, B * N * C < 2^31.
-template <Order kOrder>
-int launch_run_fwd(const void* img, const void* coords, void* out, float fill, int B, int H, int W,
-                   int C, int N, int device, void* stream) {
+// A forward kernel on the run skeleton: its kC = 3 or its kC = 0 instantiation.
+using RunFwdKernel = void (*)(const float*, const float2*, float*, float, int, int, int, int, int);
+
+// One launch of a run-skeleton forward, kernel3 (C = 3) or kernel0 (any C):
+// B x runs blocks of (kTileW, kWarps) threads, B * N * C < 2^31.
+inline int launch_run_fwd(RunFwdKernel kernel3, RunFwdKernel kernel0, const void* img, const void* coords,
+                          void* out, float fill, int B, int H, int W, int C, int N, int device,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || N == 0) return 0;
   const int runs = (N + kRun - 1) / kRun;
-  using Kernel = void (*)(const float*, const float2*, float*, float, int, int, int, int, int);
-  Kernel kernel;
-  if constexpr (kOrder == Order::kXFirst) {
-    kernel = C == 3 ? &warp_winx_fwd_kernel<3> : &warp_winx_fwd_kernel<0>;
-  } else if constexpr (kOrder == Order::kYFirst) {
-    kernel = C == 3 ? &warp_win_fwd_kernel<3> : &warp_win_fwd_kernel<0>;
-  } else {
-    kernel = C == 3 ? &warp_win3_fwd_kernel<3> : &warp_win3_fwd_kernel<0>;
-  }
+  const RunFwdKernel kernel = C == 3 ? kernel3 : kernel0;
   kernel<<<B * runs, dim3(kTileW, kWarps), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), static_cast<const float2*>(coords), static_cast<float*>(out), fill,
       H, W, C, N, runs);
@@ -629,16 +605,11 @@ int launch_run_fwd(const void* img, const void* coords, void* out, float fill, i
 
 extern "C" {
 
-// img [B,H,W,C], coords [B,N,2] -> out [B,N,C]; B*N*C < 2^31.
+// img [B,H,W,C], coords [B,N,2] (8-byte aligned) -> out [B,N,C]; B*N*C < 2^31.
 int sinddm_warp_whole_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
                           int W, int C, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  sinddm::warp_whole_fwd_kernel<<<sinddm::blocks_for((long long)B * N), sinddm::kWarpThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(coords), static_cast<float*>(out),
-      fill, B, H, W, C, N);
-  return (int)cudaGetLastError();
+  return sinddm::launch_run_fwd(&sinddm::warp_whole_fwd_kernel<3>, &sinddm::warp_whole_fwd_kernel<0>, img,
+                                coords, out, fill, B, H, W, C, N, device, stream);
 }
 
 // ct [B,N,C], coords [B,N,2] (8-byte aligned) -> gimg [B,H,W,C], zeroed here
@@ -666,27 +637,25 @@ int sinddm_warp_whole_bwd(const void* ct, const void* coords, void* gimg, int B,
   return (int)cudaGetLastError();
 }
 
-// img [B,H,W,C], coords [B,N,2] (8-byte aligned) -> out [B,N,C]; B*N*C < 2^31.
+// As sinddm_warp_whole_fwd.
 int sinddm_warp_win_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
                         int W, int C, int N, int device, void* stream) {
-  return sinddm::launch_run_fwd<sinddm::Order::kYFirst>(img, coords, out, fill, B, H, W, C, N, device, stream);
+  return sinddm::launch_run_fwd(&sinddm::warp_win_fwd_kernel<3>, &sinddm::warp_win_fwd_kernel<0>, img,
+                                coords, out, fill, B, H, W, C, N, device, stream);
 }
 
-// As sinddm_warp_win_fwd, columns first.
+// As sinddm_warp_whole_fwd, columns first.
 int sinddm_warp_winx_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
                          int W, int C, int N, int device, void* stream) {
-  return sinddm::launch_run_fwd<sinddm::Order::kXFirst>(img, coords, out, fill, B, H, W, C, N, device, stream);
+  return sinddm::launch_run_fwd(&sinddm::warp_winx_fwd_kernel<3>, &sinddm::warp_winx_fwd_kernel<0>, img,
+                                coords, out, fill, B, H, W, C, N, device, stream);
 }
 
+// As sinddm_warp_winx_fwd, in its own kernel.
 int sinddm_warp_winb_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
                          int W, int C, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  sinddm::warp_winb_fwd_kernel<<<sinddm::blocks_for((long long)B * N), sinddm::kWarpThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(coords), static_cast<float*>(out),
-      fill, B, H, W, C, N);
-  return (int)cudaGetLastError();
+  return sinddm::launch_run_fwd(&sinddm::warp_winb_fwd_kernel<3>, &sinddm::warp_winb_fwd_kernel<0>, img,
+                                coords, out, fill, B, H, W, C, N, device, stream);
 }
 
 // ct [B,N,C], coords [B,N,2] -> gimg [B,H,W,C], zeroed here first.
@@ -707,7 +676,8 @@ int sinddm_warp_win_bwd(const void* ct, const void* coords, void* gimg, int B, i
 // As sinddm_warp_winx_fwd; the fp32 image is split into its bf16 parts in the kernel.
 int sinddm_warp_win3_fwd(const void* img, const void* coords, void* out, float fill, int B, int H,
                          int W, int C, int N, int device, void* stream) {
-  return sinddm::launch_run_fwd<sinddm::Order::kSplit3>(img, coords, out, fill, B, H, W, C, N, device, stream);
+  return sinddm::launch_run_fwd(&sinddm::warp_win3_fwd_kernel<3>, &sinddm::warp_win3_fwd_kernel<0>, img,
+                                coords, out, fill, B, H, W, C, N, device, stream);
 }
 
 // ct [B,N,C], coords [B,N,2] -> gimg [B,H,W,C], zeroed here first.

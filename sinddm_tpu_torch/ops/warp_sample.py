@@ -3,15 +3,15 @@
 Each entry keeps the name of the TPU entry it replaces and runs through its
 own forward kernel of ``csrc/warp_sample.cu``:
 
-* :func:`bilinear_sample_pallas` (the whole-image kernel), rows first, a
-  pixel's channels in one thread; its own adjoint kernel;
-* :func:`bilinear_sample_pallas_win` interpolates along y first and sums
-  over x last;
+* :func:`bilinear_sample_pallas` (the whole-image kernel) interpolates
+  along y first and sums over x last; its own adjoint kernel;
+* :func:`bilinear_sample_pallas_win`, the same order in its own kernel;
 * :func:`bilinear_sample_pallas_winx` interpolates along x first and sums
   over y last (another fp32 summation order); the guidance default on a
   CUDA tensor;
-* :func:`bilinear_sample_pallas_winb` is ``winx`` with all channels of a
-  pixel in one thread;
+* :func:`bilinear_sample_pallas_winb`, ``winx``'s order in its own kernel
+  (the TPU kernel batches a pixel's channels into one contraction; every
+  forward here computes a sample's channels in one thread);
 * :func:`bilinear_sample_pallas_win3` is ``win`` with the products split
   into bf16 parts (three bf16 x bf16 products, fp32 sums); its own adjoint
   kernel splits both factors the same way.
@@ -29,14 +29,15 @@ image b behind index b); the output is ``coords.shape[:-1] + (C,)`` and the
 adjoint sums over every view of an image. The TPU kernels' limits (H <= 256,
 4 MB of source) do not apply.
 
-``win``, ``winx`` and ``win3`` run a block on a run of consecutive samples
-of one image, a thread on several samples with their channels. The
-whole-image adjoint runs a block on a 2-D patch of a view (the frame width
-is the last sample axis of ``coords``; flat coords are one row): it sums the
-patch's terms in a shared-memory box over the source pixels they touch and
-adds the box to the gradient with one coalesced atomic an element, or, where
-the box does not fit (coords scattered over the source), adds each term to
-the gradient directly (:func:`whole_adjoint_patches` reckons which).
+Every forward runs a block on a run of consecutive samples of one image, a
+thread on several samples with their channels; it loads coords as
+``float2``, so they are handed over 8-byte aligned. The whole-image adjoint
+runs a block on a 2-D patch of a view (the frame width is the last sample
+axis of ``coords``; flat coords are one row): it sums the patch's terms in a
+shared-memory box over the source pixels they touch and adds the box to the
+gradient with one coalesced atomic an element, or, where the box does not
+fit (coords scattered over the source), adds each term to the gradient
+directly (:func:`whole_adjoint_patches` reckons which).
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The adjoints accumulate with ``atomicAdd``, so
@@ -58,8 +59,6 @@ launches = {
 }
 # the adjoint kernel of each forward
 ADJOINT = {"whole": "whole", "win": "win", "winx": "win", "winb": "win", "win3": "win3"}
-# the forwards that run a block on a run of samples (csrc/warp_sample.cu kRun)
-RUN_KERNELS = ("win", "winx", "win3")
 # samples a block of the whole-image adjoint, and the floats its shared-memory
 # box holds (csrc/warp_sample.cu kPatch, kBoxFloats)
 PATCH, BOX_FLOATS = 1024, 8192
@@ -152,7 +151,7 @@ def _plain(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fill: float)
 
 def _float2(coords3: torch.Tensor) -> torch.Tensor:
     """Contiguous coords at an 8-byte address, copied where they are not: the
-    run kernels and the whole-image adjoint load (x, y) as one float2."""
+    forwards and the whole-image adjoint load (x, y) as one float2."""
     coords3 = coords3.contiguous()
     return coords3.clone() if coords3.data_ptr() % 8 else coords3
 
@@ -226,7 +225,7 @@ def _launch_forward(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fil
     b, h, w, c = img4.shape
     n = coords3.shape[1]
     img4 = img4.contiguous()
-    coords3 = _float2(coords3) if variant in RUN_KERNELS else coords3.contiguous()
+    coords3 = _float2(coords3)
     out = torch.empty((b, n, c), dtype=torch.float32, device=img4.device)
     lib = _build.library("warp_sample")
     err = getattr(lib, f"sinddm_warp_{variant}_fwd")(
@@ -297,7 +296,7 @@ def _sample(variant: str, img: torch.Tensor, coords: torch.Tensor, fill: float) 
 
 
 def bilinear_sample_pallas(img: torch.Tensor, coords: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """The whole-image warp, a pixel's channels in one thread (TPU ``_fwd_kernel``)."""
+    """The whole-image warp, rows first (TPU ``_fwd_kernel``)."""
     return _sample("whole", img, coords, fill)
 
 
@@ -312,7 +311,7 @@ def bilinear_sample_pallas_winx(img: torch.Tensor, coords: torch.Tensor, fill: f
 
 
 def bilinear_sample_pallas_winb(img: torch.Tensor, coords: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """``winx`` with a pixel's channels in one thread (TPU ``_fwd_kernel_winb``)."""
+    """``winx``'s order in its own kernel (TPU ``_fwd_kernel_winb``)."""
     return _sample("winb", img, coords, fill)
 
 

@@ -178,9 +178,9 @@ def test_win3_kernels_match_split3_plain_and_stay_near_exact(gen, b, h, w, c, v,
 
 
 def _run_case(gen, case, c):
-    """(img, coords, fill) for the run kernels (win, winx, win3) and the
-    whole-image warp with its patch adjoint, two images: the
-    path's views of a 120x160 source (224x298 frames); coords scattered over
+    """(img, coords, fill) for the run kernels (every forward) and the
+    whole-image patch adjoint, two images: the path's views of a 120x160
+    source (224x298 frames); coords scattered over
     -0.2 .. 1.3 of a 300-row source; both in one launch; 37x45 frames (a
     run of 1024 samples ends inside an image); the views as flat coords."""
     from sinddm_tpu_torch.guidance import clip_extractor as ce
@@ -211,9 +211,9 @@ def _run_case(gen, case, c):
 
 @pytest.mark.parametrize("c", [1, 3, 4, 5, 65])
 @pytest.mark.parametrize("case", ["views", "scattered", "mixed", "frame37x45", "flat"])
-@pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole"])
+@pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole", "winb"])
 def test_run_kernels_match_plain(gen, variant, case, c):
-    """win, winx and win3 run a block on 1024 consecutive samples of an
+    """Every forward runs a block on 1024 consecutive samples of an
     image, a thread on 8 samples; the whole-image adjoint runs a block on a
     2-D patch of a view (1 x 1024 samples on flat coords). Value and image
     gradient against the plain versions at the bounds above, C = 3 (the
@@ -247,10 +247,10 @@ def test_run_kernels_match_plain(gen, variant, case, c):
         assert (grad - gexact).abs().max().item() <= 7e-5 * g_max
 
 
-@pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole"])
+@pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole", "winb"])
 def test_run_kernels_take_unaligned_coords_and_outputs(gen, variant):
-    """Coords 4 bytes off the 8 the kernels load them at (the run forwards
-    and the whole-image adjoint), and 1111-sample images of 3 channels, so
+    """Coords 4 bytes off the 8 the kernels load them at (the forwards and
+    the whole-image adjoint), and 1111-sample images of 3 channels, so
     each image's outputs start at another alignment (the stores' scalar head
     and tail); value and image gradient."""
     shape = (3, 57, 61, 3)

@@ -215,7 +215,7 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     assert all(v == 0 for v in ws.launches.values())
 
 
-@pytest.mark.parametrize("variant", ["win", "winx", "win3"])
+@pytest.mark.parametrize("variant", ["whole", "win", "winx", "winb", "win3"])
 def test_run_entries_take_flat_and_batched_coords_as_pallas(variant):
     """Flat coords [N, 2] (one row) and a batch [B, N, 2] give the Pallas
     kernel's values on the same samples, in interpret mode."""
@@ -233,7 +233,7 @@ def test_run_entries_take_flat_and_batched_coords_as_pallas(variant):
         np.testing.assert_allclose(both[b].numpy(), np.asarray(theirs), atol=1e-5)
 
 
-@pytest.mark.parametrize("variant", ["win", "winx", "win3"])
+@pytest.mark.parametrize("variant", ["whole", "win", "winx", "winb", "win3"])
 def test_run_entries_take_many_channels_as_pallas(variant):
     """No channel limit: 65 channels on a CPU tensor give the Pallas kernel's
     values, in interpret mode."""
