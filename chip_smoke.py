@@ -7,7 +7,10 @@ CUDA card, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 each of which exits non-zero when it fails:
 
 1. identify the card; turn TF32 off so the plain versions are true fp32;
-2. build the CUDA kernels from ``sinddm_tpu_torch/csrc`` for sm_90a;
+2. build the CUDA kernels from ``sinddm_tpu_torch/csrc`` for sm_90a; check
+   with ``cuobjdump -sass`` that every instantiation of the conv block's
+   3x3 kernel holds tensor-core ``HMMA`` instructions (TF32 in fp32, BF16 in
+   bf16), so no stage runs on the SIMT cores;
 3. hold each kernel against its plain version at the main path's shapes
    (the four dim=160 blocks at 16x186x248, fp32 and bf16; the eight view-warp
    kernels at 16 images x 8 views of 224x298 from 186x248x3, value and image
@@ -19,7 +22,9 @@ each of which exits non-zero when it fails:
 4. time each kernel with CUDA events beside its bound, its plain version
    and, where there is one, the one PyTorch call that computes it
    (``F.conv2d`` with groups, ``F.grid_sample``; for win3 the library call
-   computes the exact warp, not the split one); the five warp forwards and
+   computes the exact warp, not the split one); a conv block also beside
+   its four bounds (fp32 SIMT, TF32, 3xTF32, bf16) and cuDNN's time for its
+   two 3x3 products alone (no single call computes a block); the five warp forwards and
    the whole-image adjoint also as the kernel alone (their C entry, no
    wrapper);
    print the whole-image adjoint's patch plan (patches that sum in the
@@ -94,8 +99,10 @@ Tolerances (max |kernel - plain| against the plain version's values):
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -349,6 +356,32 @@ def profile_groups(tag, what, unit, n, run):
                                                           "idle_share": 1 - busy / window}
 
 
+def tensor_core_check(build) -> None:
+    """Fail unless the SASS of every instantiation of the conv block's 3x3
+    kernel holds HMMA instructions of its type (TF32 for fp32, BF16 for
+    bf16): the stages run on the tensor cores, not the SIMT cores."""
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("conv_block"))],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass of the conv_block library failed: {res.stderr.strip()[-500:]}")
+    forms, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            forms[fn] = collections.Counter()
+        elif fn is not None:
+            forms[fn].update(re.findall(r"\bHMMA\.[\w.]+", line))
+    convs = {f: c for f, c in forms.items() if "conv3x3" in f}
+    for f, c in convs.items():
+        say(f"[sass conv_block] {f}: {dict(c) if c else 'no HMMA'}")
+    want = lambda f: "BF16" if "bfloat16" in f else "TF32"  # noqa: E731
+    bad = [f for f, c in convs.items() if not any(want(f) in form for form in c)]
+    if len(convs) < 6 or bad:
+        fail(f"conv_block's 3x3 kernels without tensor-core HMMA ({len(convs)} found): {bad}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -400,6 +433,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say(f"[ptxas {kname}] {line.strip()}")
+    tensor_core_check(_build)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     h_fin, w_fin = BALLOONS_SIZES_HW[-1]
@@ -530,21 +564,33 @@ def main() -> None:
         del ct, x_ref, ref, g_ref, x_s3, ref3, g_ref3, x_in, out, g_out, coords3
 
     # ---- 4. times at the main path's shapes ---------------------------------
-    for dtype, dname, rate in ((torch.float32, "fp32", peaks["fp32"]), (torch.bfloat16, "bf16", peaks["bf16"])):
+    # a block's bound: its operations on the tensor cores (fp32 as 3xTF32,
+    # three TF32 products; bf16 one product) or its bytes, whichever is longer
+    for dtype, dname, rate in ((torch.float32, "fp32", peaks["tf32"] / 3), (torch.bfloat16, "bf16", peaks["bf16"])):
         for bname, c, co in BLOCKS:
             args = block_inputs(gen, BATCH, h_fin, w_fin, c, co, dtype)
             k_ms = time_ms(lambda: cb.conv_block(*args), reps=10)
             p_ms = time_ms(lambda: cb.conv_block_reference(*args), reps=5)
             flops, nbytes = block_work(BATCH, h_fin, w_fin, c, co, args[0].element_size())
             b_ms, b_by = bound(flops, nbytes, rate, peaks["mem"])
-            tf32_ms = flops / peaks["tf32"] * 1e3
+            ops_ms = {k: flops / peaks[k] * 1e3 for k in ("fp32", "tf32", "bf16")}
+            ops_ms["3xtf32"] = 3 * ops_ms["tf32"]
+            # cuDNN's two 3x3 products alone (channels-last, TF32 off), not the block
+            nchw = lambda ch: args[0].new_empty(BATCH, h_fin, w_fin, ch).normal_(generator=gen).permute(0, 3, 1, 2)  # noqa: E731
+            oihw = lambda w: w.to(dtype).permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # noqa: E731
+            h1_cl, g_cl, w1_cl, w2_cl = nchw(c), nchw(co), oihw(args[4]), oihw(args[6])
+            lib_ms = time_ms(lambda: (F.conv2d(h1_cl, w1_cl, padding=1), F.conv2d(g_cl, w2_cl, padding=1)), reps=10)
             say(f"[time conv_block {dname} {bname} {BATCH}x{h_fin}x{w_fin} {c}->{co}] kernel_ms {k_ms:.4f} "
-                f"plain_ms {p_ms:.4f} GFLOP {flops / 1e9:.2f} GB {nbytes / 1e9:.4f} bound_ms {b_ms:.4f} "
-                f"({b_by}) TF32_bound_ms {tf32_ms:.4f} TFLOP/s {flops / k_ms / 1e9:.2f}")
+                f"plain_ms {p_ms:.4f} GFLOP {flops / 1e9:.2f} GB {nbytes / 1e9:.4f} bound_ms {b_ms:.4f} ({b_by}, "
+                f"{'3xTF32' if dtype == torch.float32 else 'bf16'}) share of the bound {b_ms / k_ms:.3f} | operations "
+                f"alone: fp32_SIMT_ms {ops_ms['fp32']:.4f} TF32_ms {ops_ms['tf32']:.4f} 3xTF32_ms {ops_ms['3xtf32']:.4f} "
+                f"bf16_ms {ops_ms['bf16']:.4f} | TFLOP/s {flops / k_ms / 1e9:.2f} | cudnn_3x3_products_ms {lib_ms:.4f} "
+                f"(F.conv2d channels-last, TF32 off: cuDNN's two 3x3 products alone, not the block)")
             if (dname, bname) == ("fp32", "l3"):
                 results["conv_block"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                             cudnn_3x3_products_ms=lib_ms,
                                              shape=f"{BATCH}x{h_fin}x{w_fin}x{c}->{co} fp32")
-            del args
+            del args, h1_cl, g_cl, w1_cl, w2_cl
 
     x = torch.randn((BATCH, h_fin, w_fin, DIM), generator=gen, device="cuda")
     wdw = torch.randn((5, 5, DIM), generator=gen, device="cuda") * 0.2
@@ -949,6 +995,7 @@ def main() -> None:
             "max_abs_err": results[err_key], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
+            **({"cudnn_3x3_products_ms": r["cudnn_3x3_products_ms"]} if kname == "conv_block" else {}),
         })
     for entry, where in WARP_REPLACES.items():
         r = results["warp"][entry]

@@ -6,32 +6,64 @@
 //
 // Replaces the TPU kernel sinddm_tpu/ops/pallas_conv.py `_conv_block_kernel`
 // (entry `fused_conv_block`). That kernel was shaped by VMEM, 128-lane DMA
-// and the MXU; this one is written for the SM's registers and shared memory.
+// and the MXU; this one runs the two 3x3 stages on the SM's tensor cores
+// with warp-level `mma.sync`, fed from shared memory by `cp.async`.
 //
-// What bounds it on the H100: operations. At the finest balloons shape
-// (16x186x248) the 160->160 block is 686 GFLOP against 0.94 GB of input
-// plus output, ~730 FLOP per byte. The products run as fp32 fmaf on the
-// SIMT cores (67 TFLOP/s on the SXM part; the TF32 tensor cores would
-// give 495), so the design keeps the FMA pipes busy:
-//   * implicit GEMM: a block owns an 8x16-pixel x 80-channel output tile of
-//     one image and walks the input channels in chunks of 8, staging the
-//     (8+2)x(16+2) halo tile and the 3x3x8x80 weight slab in shared memory;
-//   * each of the 160 threads keeps an 8-pixel x 8-channel register tile
-//     (64 accumulators). Per input channel and kernel row it reads 10 input
-//     values once and reuses them for the 3 horizontal taps, and reads its
-//     8 weights as two 16-byte loads, so a shared-memory load feeds ~12 FMAs;
-//   * ragged H, W (W = 64, 90, 126, 177, 248) and small channel counts
-//     (l1's C = 3) are masked while staging; no channel padding.
-// Zero padding: the split below stores h1 and g only inside the image, and
-// every 3x3 stage reads zeros outside it, so each stage sees zero padding,
-// never bias+cond or gelu(b1) (the `valid1`/`valid2` masks of the TPU kernel).
+// What bounds it on the H100: operations on the tensor cores. At the finest
+// balloons shape (16x186x248) the 160->160 block is 686 GFLOP against
+// 0.94 GB of input plus output, ~730 FLOP per byte.
+//   * fp32 runs 3xTF32: each operand is split in registers as its fragment
+//     is loaded, hi = rna(a), lo = rna(a - hi) with cvt.rna.tf32's rounding
+//     (`tf32_rna`), and each product is lo*hi + hi*lo + hi*hi (small terms
+//     first; lo*lo dropped) into fp32 accumulators: three TF32 products, so
+//     its bound is 3x the TF32 rate (~4.16 ms for that block at 495
+//     TFLOP/s). The tensor cores truncate as they accumulate, so a chunk's
+//     products go into partial sums that fp32 adds fold into the running
+//     ones (`mma_chunk`): 20x smaller errors than one running sum, for 4-8%
+//     of the time. Single-pass TF32 keeps 11 bits of each operand; over
+//     K = 9*160 = 1440 terms it leaves the fp32 block's atol 2e-4 + rtol
+//     2e-4 by ~5x, and it would compute another function than the JAX
+//     package's fp32 block.
+//   * bf16 runs mma.m16n8k16 bf16 x bf16 -> fp32 (0.69 ms bound).
+//
+// Implicit GEMM. A block owns an 8x16-pixel (M 128) x 80-channel (N) output
+// tile of one image (Co = 160: two tiles). Its K loop walks chunks of 32
+// bytes of input channels (8 fp32 = one k8 step, 16 bf16 = one k16 step);
+// the 9 taps of a chunk read one staged (8+2)x(16+2) halo tile at shifted
+// offsets. Each of the 4 warps owns 2 output rows x 80 channels: two m16 by
+// ten n8 fragments, 80 fp32 accumulators a thread. For the 1x1 projection
+// (l1, l2, l4) the un-haloed x tile and Wres run as extra K chunks of the
+// same loop, one tap each, split the same way in fp32.
+//
+// The ring: 2 stages of 33,984 bytes in dynamic shared memory (67,968 in
+// all; at 236-255 registers a thread, 2 blocks an SM): the halo tile, 180
+// pixels at a 48-byte stride, and the 9 x chunk x 80 weight slab at an
+// 88-element row stride. Both strides put the eight rows of a fragment load
+// in distinct banks. Chunk k+1 loads while chunk k multiplies
+// (commit_group / wait_group); a third stage measured 3-4% slower. Two
+// staging paths, chosen per tensor on the host:
+//   * 16-byte `cp.async.cg` copies where the channel count is a multiple of
+//     4 (fp32) / 8 (bf16) and the base is 16-byte aligned; pixels outside
+//     the image and channels past C use the zero-fill form (src-size 0),
+//     which gives the TPU kernel's `valid1`/`valid2` zero padding;
+//   * plain loads and shared stores otherwise (l1's C = 3, odd widths,
+//     misaligned views), zero-padding K and N the same way.
+// The epilogue adds the bias, then takes the exact erf GELU (conv1) or adds
+// the identity residual or the projection's bres, and stores masked on
+// ragged H, W and Co.
 //
 // Three launches per block: h1 (dw+bias+cond) is the kernel of dw_conv.cu;
 // this file holds conv1+bias+GELU and conv2+bias+residual. The split costs
 // two extra device-memory round trips, h1 and g each written once and read
 // once: 2*B*H*W*(C+Co)*sizeof(T) bytes, 1.89 GB for the fp32 160->160 block
-// at the finest shape (0.56 ms at 3.35 TB/s), beside tens of ms of FMA work.
-// A fused wgmma/TMA kernel is later work.
+// at the finest shape (0.56 ms at 3.35 TB/s).
+//
+// Left for a `wgmma`/TMA kernel, and why not here: TMA needs 16-byte global
+// strides, which l1's 3-channel h1 (12 / 6 bytes a pixel) and the tested
+// C = 12, Co = 8 / 24 do not have; TF32 `wgmma` takes only K-major operands,
+// and HWIO weights are N-major, so it needs a weight re-layout; and
+// descriptors, swizzles and an mbarrier pipeline at once make a kernel
+// that is hard to check. Fusing the three launches comes with it.
 //
 // Types: T = float, or __nv_bfloat16 with fp32 accumulation. In bf16 the
 // intermediates h1 and g are rounded to bf16 before each product, as the TPU
@@ -39,178 +71,367 @@
 //
 // C interface, loaded with ctypes: every entry returns the first non-zero
 // cudaError_t of its launches (0 on success) and never synchronises.
+#include <atomic>
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace sinddm {
 
 constexpr int kTH = 8;                               // output rows per block
-constexpr int kTW = 16;                              // output cols per block
+constexpr int kTW = 16;                              // output cols per block (one m16 fragment)
 constexpr int kTN = 80;                              // output channels per block
-constexpr int kPX = 8;                               // output cols per thread
-constexpr int kCO = 8;                               // output channels per thread
-constexpr int kKC = 8;                               // input channels per chunk
-constexpr int kColThreads = kTW / kPX;               // 2
-constexpr int kPixThreads = kTH * kColThreads;       // 16
-constexpr int kCoThreads = kTN / kCO;                // 10
-constexpr int kThreads = kPixThreads * kCoThreads;   // 160
+constexpr int kWarps = 4;                            // a warp: 2 rows x 80 channels
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMT = kTH / kWarps;                    // m16 fragments a warp (2)
+constexpr int kNT = kTN / 8;                         // n8 fragments a warp (10)
 constexpr int kInH = kTH + 2;
 constexpr int kInW = kTW + 2;
+constexpr int kHalo = kInH * kInW;                   // 180 pixels
+constexpr int kStages = 2;
+constexpr int kChunkBytes = 32;                      // input channels a chunk, in bytes
+constexpr int kPixBytes = 48;                        // a staged pixel: 32 bytes + 16 of padding
+constexpr int kWStride = kTN + 8;                    // a staged weight row, in elements
+constexpr int kHaloBytes = kHalo * kPixBytes;        // 8,640
+constexpr int kSlabBytes = 9 * kChunkBytes * kWStride;  // 25,344 (9 x KC rows x 88 x sizeof(T))
+constexpr int kStageBytes = kHaloBytes + kSlabBytes;    // 33,984
+constexpr int kSmemBytes = kStages * kStageBytes;       // 67,968
 
 enum Epilogue { kGelu = 0, kIdentityRes = 1, kProjRes = 2 };
+
+template <typename T>
+struct ConvArgs {
+  const T* in;     // [B,H,W,Cin]
+  const T* w;      // [3,3,Cin,Co]
+  const T* bias;   // [Co]
+  const T* res;    // [B,H,W,Cres]
+  const T* wres;   // [Cres,Co]  (kProjRes)
+  const T* bres;   // [Co]       (kProjRes)
+  T* out;          // [B,H,W,Co]
+  int Cin, Cres, H, W, Co, tiles_w;
+  bool vec_in, vec_w, vec_res, vec_wres;  // 16-byte copies allowed
+};
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// out = epilogue(conv3x3_same(in, w) + bias). For kProjRes the 1x1
-// projection of `res` is accumulated into the same registers.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage input channels k0 .. k0 + KC of the K loop into one ring slot:
+// the 3x3 product's halo tile and 9-tap slab, or (PROJ) the projection's x
+// tile at the halo's interior and one-tap slab of Wres.
+template <bool PROJ, typename T>
+__device__ __forceinline__ void stage_chunk(const ConvArgs<T>& a, unsigned char* slot, int k0,
+                                            int b, int y0, int x0, int n0, int tid) {
+  constexpr int KC = kChunkBytes / (int)sizeof(T);   // 8 fp32, 16 bf16
+  constexpr int VEC = 16 / (int)sizeof(T);           // elements a 16-byte copy
+  constexpr int PS = kPixBytes / (int)sizeof(T);     // staged pixel stride
+  constexpr int pad = PROJ ? 1 : 0;                  // where the tile's (0, 0) sits in the halo
+  constexpr int rows = PROJ ? kTH : kInH, cols = PROJ ? kTW : kInW;
+  T* s_in = reinterpret_cast<T*>(slot);
+  T* s_w = reinterpret_cast<T*>(slot + kHaloBytes);
+  const T* src = PROJ ? a.res : a.in;
+  const T* wsrc = PROJ ? a.wres : a.w;
+  const int C = PROJ ? a.Cres : a.Cin;
+  const int oy = y0 - 1 + pad, ox = x0 - 1 + pad;     // image origin of staged pixel (0, 0)
+  const T* src_b = src + (size_t)b * a.H * a.W * C;
+  const T zero = from_f32<T>(0.f);
+
+  if (PROJ ? a.vec_res : a.vec_in) {
+    for (int e = tid; e < rows * cols * (KC / VEC); e += kThreads) {
+      const int p = e / (KC / VEC), part = e % (KC / VEC);
+      const int py = p / cols, px = p - py * cols;
+      const int gy = oy + py, gx = ox + px, k = k0 + part * VEC;
+      const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && k < C;
+      const T* g = ok ? src_b + ((size_t)gy * a.W + gx) * C + k : src;
+      cp_async16(s_in + ((py + pad) * kInW + px + pad) * PS + part * VEC, g, ok);
+    }
+  } else {
+    for (int e = tid; e < rows * cols * KC; e += kThreads) {
+      const int p = e / KC, ci = e % KC;
+      const int py = p / cols, px = p - py * cols;
+      const int gy = oy + py, gx = ox + px, k = k0 + ci;
+      const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && k < C;
+      s_in[((py + pad) * kInW + px + pad) * PS + ci] =
+          ok ? src_b[((size_t)gy * a.W + gx) * C + k] : zero;
+    }
+  }
+
+  constexpr int n_rows = (PROJ ? 1 : 9) * KC;         // slab rows (tap, channel)
+  if (PROJ ? a.vec_wres : a.vec_w) {
+    constexpr int kPieces = kTN / VEC;
+    for (int e = tid; e < n_rows * kPieces; e += kThreads) {
+      const int row = e / kPieces, piece = e - row * kPieces;
+      const int t = row / KC, k = k0 + row % KC, co = n0 + piece * VEC;
+      const bool ok = k < C && co < a.Co;
+      const T* g = ok ? wsrc + ((size_t)t * C + k) * a.Co + co : wsrc;
+      cp_async16(s_w + row * kWStride + piece * VEC, g, ok);
+    }
+  } else {
+    for (int e = tid; e < n_rows * kTN; e += kThreads) {
+      const int row = e / kTN, n = e - row * kTN;
+      const int t = row / KC, k = k0 + row % KC, co = n0 + n;
+      s_w[row * kWStride + n] =
+          (k < C && co < a.Co) ? wsrc[((size_t)t * C + k) * a.Co + co] : zero;
+    }
+  }
+}
+
+// fp32 -> TF32 rounded to nearest, ties away from zero: cvt.rna.tf32.f32's
+// rounding, by adding half a TF32 unit to the sign-magnitude pattern and
+// clearing the 13 bits below it. Written out, because ptxas wraps cvt.rna
+// in an Inf/NaN select that costs two more instructions a value.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], const void* smem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+
+// The products of one staged chunk: NTAPS = 9 (3x3, tap t at offset
+// (t / 3, t % 3) of the halo) or 1 (projection, the interior at (1, 1)).
+// Fragment layouts are the PTX ISA's for m16n8k8 / m16n8k16: g = lane / 4
+// picks the fragment row (pixel) and B column (channel), q = lane % 4 the k.
+//
+// fp32: the tensor cores add into their fp32 accumulator with truncation,
+// so 540 mma into one sum (K = 1440, three products each) drift; the
+// chunk's 27 (9 taps x 3) go into partial sums that start at zero, and
+// those are added to the running sums with IEEE fp32 adds.
+template <int NTAPS>
+__device__ __forceinline__ void mma_chunk(const float* s_in, const float* s_w,
+                                          float (&acc)[kMT][kNT][4], int warp, int lane) {
+  constexpr int PS = kPixBytes / 4;
+  const int g = lane >> 2, q = lane & 3;
+  float part[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NTAPS; ++t) {
+    const int dy = NTAPS == 1 ? 1 : t / 3, dx = NTAPS == 1 ? 1 : t % 3;
+    uint32_t ahi[kMT][4], alo[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const float* p = s_in + ((kMT * warp + mt + dy) * kInW + dx + g) * PS + q;
+      split_tf32(p[0], ahi[mt][0], alo[mt][0]);            // pixel g,     k q
+      split_tf32(p[8 * PS], ahi[mt][1], alo[mt][1]);       // pixel g + 8, k q
+      split_tf32(p[4], ahi[mt][2], alo[mt][2]);            // pixel g,     k q + 4
+      split_tf32(p[8 * PS + 4], ahi[mt][3], alo[mt][3]);   // pixel g + 8, k q + 4
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float* p = s_w + (t * 8 + q) * kWStride + nt * 8 + g;
+      uint32_t bhi[2], blo[2];
+      split_tf32(p[0], bhi[0], blo[0]);               // k q,     n g
+      split_tf32(p[4 * kWStride], bhi[1], blo[1]);    // k q + 4, n g
+      // small terms first
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) mma_tf32(part[mt][nt], alo[mt], bhi[0], bhi[1]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) mma_tf32(part[mt][nt], ahi[mt], blo[0], blo[1]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) mma_tf32(part[mt][nt], ahi[mt], bhi[0], bhi[1]);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+}
+
+template <int NTAPS>
+__device__ __forceinline__ void mma_chunk(const __nv_bfloat16* s_in, const __nv_bfloat16* s_w,
+                                          float (&acc)[kMT][kNT][4], int warp, int lane) {
+  constexpr int PW = kPixBytes / 4;  // staged pixel stride in 32-bit words (two channels each)
+  const int g = lane >> 2, q = lane & 3;
+  const uint32_t* in_w = reinterpret_cast<const uint32_t*>(s_in);
+#pragma unroll
+  for (int t = 0; t < NTAPS; ++t) {
+    const int dy = NTAPS == 1 ? 1 : t / 3, dx = NTAPS == 1 ? 1 : t % 3;
+    uint32_t a[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const uint32_t* p = in_w + ((kMT * warp + mt + dy) * kInW + dx + g) * PW + q;
+      a[mt][0] = p[0];           // pixel g,     k 2q, 2q+1
+      a[mt][1] = p[8 * PW];      // pixel g + 8, k 2q, 2q+1
+      a[mt][2] = p[4];           // pixel g,     k 2q+8, 2q+9
+      a[mt][3] = p[8 * PW + 4];  // pixel g + 8, k 2q+8, 2q+9
+    }
+    // B fragments of n8 tiles 2j and 2j+1 in one transposing load: lane l
+    // gives the address of row k = l % 8 + 8 * (l / 8 % 2) of tile 2j + l / 16
+    const __nv_bfloat16* row = s_w + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kWStride +
+                               (lane >> 4) * 8;
+#pragma unroll
+    for (int j = 0; j < kNT / 2; ++j) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, row + j * 16);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        mma_bf16(acc[mt][2 * j], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][2 * j + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// out = epilogue(conv3x3_same(in, w) + bias); for kProjRes the 1x1
+// projection of `res` runs as extra K chunks into the same accumulators.
 template <typename T, int EPI>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ in, int Cin,     // [B,H,W,Cin]
-               const T* __restrict__ w,               // [3,3,Cin,Co]
-               const T* __restrict__ bias,            // [Co]
-               const T* __restrict__ res, int Cres,   // [B,H,W,Cres]
-               const T* __restrict__ wres,            // [Cres,Co]  (kProjRes)
-               const T* __restrict__ bres,            // [Co]       (kProjRes)
-               T* __restrict__ out,                   // [B,H,W,Co]
-               int H, int W, int Co, int tiles_w) {
-  __shared__ float s_in[kKC][kInH][kInW];
-  __shared__ __align__(16) float s_w[9][kKC][kTN];
-
-  const int tid = threadIdx.x;
-  const int cg = tid % kCoThreads;
-  const int pt = tid / kCoThreads;
-  const int r = pt / kColThreads;
-  const int c0 = (pt % kColThreads) * kPX;
-
-  const int y0 = (blockIdx.x / tiles_w) * kTH;
-  const int x0 = (blockIdx.x % tiles_w) * kTW;
+__global__ void __launch_bounds__(kThreads) conv3x3_tc_kernel(const ConvArgs<T> a) {
+  constexpr int KC = kChunkBytes / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int y0 = (blockIdx.x / a.tiles_w) * kTH;
+  const int x0 = (blockIdx.x % a.tiles_w) * kTW;
   const int n0 = blockIdx.y * kTN;
   const int b = blockIdx.z;
+  const int n_main = (a.Cin + KC - 1) / KC;
+  const int n_chunks = n_main + (EPI == kProjRes ? (a.Cres + KC - 1) / KC : 0);
 
-  float acc[kPX][kCO];
+  float acc[kMT][kNT][4];
 #pragma unroll
-  for (int j = 0; j < kPX; ++j)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int k = 0; k < kCO; ++k) acc[j][k] = 0.f;
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  const T* in_b = in + (size_t)b * H * W * Cin;
-  for (int k0 = 0; k0 < Cin; k0 += kKC) {
-    for (int e = tid; e < kKC * kInH * kInW; e += kThreads) {
-      const int ci = e % kKC;
-      const int p = e / kKC;
-      const int gy = y0 - 1 + p / kInW;
-      const int gx = x0 - 1 + p % kInW;
-      const int k = k0 + ci;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && k < Cin)
-        v = to_f32(in_b[((size_t)gy * W + gx) * Cin + k]);
-      s_in[ci][p / kInW][p % kInW] = v;
-    }
-    for (int e = tid; e < 9 * kKC * kTN; e += kThreads) {
-      const int n = e % kTN;
-      const int q = e / kTN;
-      const int ci = q % kKC;
-      const int t = q / kKC;
-      const int k = k0 + ci;
-      const int co = n0 + n;
-      float v = 0.f;
-      if (k < Cin && co < Co) v = to_f32(w[((size_t)t * Cin + k) * Co + co]);
-      s_w[t][ci][n] = v;
-    }
-    __syncthreads();
-
-    for (int ci = 0; ci < kKC; ++ci) {
+  // chunks below n_main are the 3x3 product's, the rest the projection's
+  const auto stage = [&](int chunk) {
+    unsigned char* slot = smem + (chunk % kStages) * kStageBytes;
+    if (EPI != kProjRes || chunk < n_main)
+      stage_chunk<false>(a, slot, chunk * KC, b, y0, x0, n0, tid);
+    else
+      stage_chunk<true>(a, slot, (chunk - n_main) * KC, b, y0, x0, n0, tid);
+  };
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float v[kPX + 2];
-#pragma unroll
-        for (int j = 0; j < kPX + 2; ++j) v[j] = s_in[ci][r + dy][c0 + j];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4 wa = *reinterpret_cast<const float4*>(&s_w[dy * 3 + dx][ci][cg * kCO]);
-          const float4 wb = *reinterpret_cast<const float4*>(&s_w[dy * 3 + dx][ci][cg * kCO + 4]);
-          const float wv[kCO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int j = 0; j < kPX; ++j)
-#pragma unroll
-            for (int k = 0; k < kCO; ++k) acc[j][k] = fmaf(v[j + dx], wv[k], acc[j][k]);
-        }
-      }
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_chunks) stage(s);
+    cp_async_commit();
   }
-
-  if constexpr (EPI == kProjRes) {
-    // 1x1 projection of the block input: same register tile, no halo
-    float(*s_x)[kTH][kTW] = reinterpret_cast<float(*)[kTH][kTW]>(&s_in[0][0][0]);
-    float(*s_r)[kTN] = reinterpret_cast<float(*)[kTN]>(&s_w[0][0][0]);
-    const T* res_b = res + (size_t)b * H * W * Cres;
-    for (int k0 = 0; k0 < Cres; k0 += kKC) {
-      for (int e = tid; e < kKC * kTH * kTW; e += kThreads) {
-        const int ci = e % kKC;
-        const int p = e / kKC;
-        const int gy = y0 + p / kTW;
-        const int gx = x0 + p % kTW;
-        const int k = k0 + ci;
-        float v = 0.f;
-        if (gy < H && gx < W && k < Cres) v = to_f32(res_b[((size_t)gy * W + gx) * Cres + k]);
-        s_x[ci][p / kTW][p % kTW] = v;
-      }
-      for (int e = tid; e < kKC * kTN; e += kThreads) {
-        const int n = e % kTN;
-        const int ci = e / kTN;
-        const int k = k0 + ci;
-        const int co = n0 + n;
-        s_r[ci][n] = (k < Cres && co < Co) ? to_f32(wres[(size_t)k * Co + co]) : 0.f;
-      }
-      __syncthreads();
-      for (int ci = 0; ci < kKC; ++ci) {
-        const float4 wa = *reinterpret_cast<const float4*>(&s_r[ci][cg * kCO]);
-        const float4 wb = *reinterpret_cast<const float4*>(&s_r[ci][cg * kCO + 4]);
-        const float wv[kCO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int j = 0; j < kPX; ++j) {
-          const float xv = s_x[ci][r][c0 + j];
-#pragma unroll
-          for (int k = 0; k < kCO; ++k) acc[j][k] = fmaf(xv, wv[k], acc[j][k]);
-        }
-      }
-      __syncthreads();
-    }
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of chunk i have landed
+    __syncthreads();               // everyone's have, and slot (i - 1) % kStages is free
+    if (i + kStages - 1 < n_chunks) stage(i + kStages - 1);
+    cp_async_commit();
+    const unsigned char* slot = smem + (i % kStages) * kStageBytes;
+    const T* s_in = reinterpret_cast<const T*>(slot);
+    const T* s_w = reinterpret_cast<const T*>(slot + kHaloBytes);
+    if (EPI != kProjRes || i < n_main)
+      mma_chunk<9>(s_in, s_w, acc, warp, lane);
+    else
+      mma_chunk<1>(s_in, s_w, acc, warp, lane);
   }
+  cp_async_wait<0>();
 
-  const int gy = y0 + r;
-  if (gy >= H) return;
+  // accumulator i of fragment (mt, nt): pixel g + 8 * (i / 2), channel 2q + i % 2
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int j = 0; j < kPX; ++j) {
-    const int gx = x0 + c0 + j;
-    if (gx < W) {
-      const size_t pix = ((size_t)b * H + gy) * W + gx;
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int gy = y0 + kMT * warp + mt;
+    if (gy >= a.H) continue;
 #pragma unroll
-      for (int k = 0; k < kCO; ++k) {
-        const int co = n0 + cg * kCO + k;
-        if (co < Co) {
-          float v = acc[j][k] + to_f32(bias[co]);
-          if constexpr (EPI == kGelu) v = gelu_exact(v);
-          if constexpr (EPI == kIdentityRes) v += to_f32(res[pix * Cres + co]);
-          if constexpr (EPI == kProjRes) v += to_f32(bres[co]);
-          out[pix * Co + co] = from_f32<T>(v);
+    for (int half = 0; half < 2; ++half) {
+      const int gx = x0 + g + 8 * half;
+      if (gx >= a.W) continue;
+      const size_t pix = ((size_t)b * a.H + gy) * a.W + gx;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int co = n0 + nt * 8 + 2 * q + j;
+          if (co < a.Co) {
+            float v = acc[mt][nt][2 * half + j] + to_f32(a.bias[co]);
+            if constexpr (EPI == kGelu) v = gelu_exact(v);
+            if constexpr (EPI == kIdentityRes) v += to_f32(a.res[pix * a.Cres + co]);
+            if constexpr (EPI == kProjRes) v += to_f32(a.bres[co]);
+            a.out[pix * a.Co + co] = from_f32<T>(v);
+          }
         }
       }
     }
   }
 }
 
+// 16-byte copies take a tensor whose rows of `c` elements start 16-byte aligned
+template <typename T>
+bool vec16(const T* p, int c) {
+  return c % (16 / (int)sizeof(T)) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+namespace {
+// A bit a device for each instantiation ([bf16][EPI]) once its ring is
+// allowed. Internal linkage: a static inside the template would be one
+// symbol shared by every library that instantiates it.
+std::atomic<unsigned long long> smem_allowed[2][3];
+}  // namespace
+
 template <typename T, int EPI>
-cudaError_t launch_conv3x3(const T* in, int Cin, const T* w, const T* bias, const T* res,
-                           int Cres, const T* wres, const T* bres, T* out, int B, int H,
-                           int W, int Co, cudaStream_t stream) {
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const int tiles_h = (H + kTH - 1) / kTH;
-  const dim3 grid(tiles_w * tiles_h, (Co + kTN - 1) / kTN, B);
-  conv3x3_kernel<T, EPI><<<grid, kThreads, 0, stream>>>(in, Cin, w, bias, res, Cres, wres,
-                                                        bres, out, H, W, Co, tiles_w);
+cudaError_t launch_conv3x3(ConvArgs<T> a, int B, int device, cudaStream_t stream) {
+  // the ring is above 48 KB: allow it once per instantiation and device
+  std::atomic<unsigned long long>& allowed = smem_allowed[sizeof(T) == 2][EPI];
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (!(allowed.load() & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_tc_kernel<T, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  a.tiles_w = (a.W + kTW - 1) / kTW;
+  a.vec_in = vec16(a.in, a.Cin);
+  a.vec_w = vec16(a.w, a.Co);
+  a.vec_res = vec16(a.res, a.Cres);
+  a.vec_wres = vec16(a.wres, a.Co);
+  const int tiles_h = (a.H + kTH - 1) / kTH;
+  const dim3 grid(a.tiles_w * tiles_h, (a.Co + kTN - 1) / kTN, B);
+  conv3x3_tc_kernel<T, EPI><<<grid, kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -218,24 +439,35 @@ template <typename T>
 int conv_block(const void* h1_, const void* w1_, const void* b1_, const void* w2_,
                const void* b2_, const void* x_, const void* wres_, const void* bres_, void* g_,
                void* out_, int B, int H, int W, int C, int Co, int device, void* stream_) {
-  T* g = static_cast<T*>(g_);
   const auto stream = static_cast<cudaStream_t>(stream_);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = launch_conv3x3<T, kGelu>(static_cast<const T*>(h1_), C, static_cast<const T*>(w1_),
-                                 static_cast<const T*>(b1_), nullptr, 0, nullptr, nullptr, g, B,
-                                 H, W, Co, stream);
+  ConvArgs<T> a{};
+  a.H = H;
+  a.W = W;
+  a.Co = Co;
+  // conv1 + bias + GELU: h1 [B,H,W,C] -> g [B,H,W,Co]
+  a.in = static_cast<const T*>(h1_);
+  a.Cin = C;
+  a.w = static_cast<const T*>(w1_);
+  a.bias = static_cast<const T*>(b1_);
+  a.out = static_cast<T*>(g_);
+  err = launch_conv3x3<T, kGelu>(a, B, device, stream);
   if (err != cudaSuccess) return (int)err;
-  const T* x = static_cast<const T*>(x_);
+  // conv2 + bias + residual: g -> out, the residual from x [B,H,W,C]
+  a.in = static_cast<const T*>(g_);
+  a.Cin = Co;
+  a.w = static_cast<const T*>(w2_);
+  a.bias = static_cast<const T*>(b2_);
+  a.res = static_cast<const T*>(x_);
+  a.Cres = C;
+  a.out = static_cast<T*>(out_);
   if (wres_ == nullptr) {
-    err = launch_conv3x3<T, kIdentityRes>(g, Co, static_cast<const T*>(w2_),
-                                          static_cast<const T*>(b2_), x, C, nullptr, nullptr,
-                                          static_cast<T*>(out_), B, H, W, Co, stream);
+    err = launch_conv3x3<T, kIdentityRes>(a, B, device, stream);
   } else {
-    err = launch_conv3x3<T, kProjRes>(g, Co, static_cast<const T*>(w2_),
-                                      static_cast<const T*>(b2_), x, C,
-                                      static_cast<const T*>(wres_), static_cast<const T*>(bres_),
-                                      static_cast<T*>(out_), B, H, W, Co, stream);
+    a.wres = static_cast<const T*>(wres_);
+    a.bres = static_cast<const T*>(bres_);
+    err = launch_conv3x3<T, kProjRes>(a, B, device, stream);
   }
   return (int)err;
 }

@@ -10,7 +10,8 @@ Port of ``sinddm_tpu/ops/pallas_conv.py`` (``fused_conv_block`` /
 with every convolution 'SAME' (zero padding). On a CUDA tensor,
 :func:`conv_block` runs three launches: ``h1`` is the depthwise kernel of
 :mod:`sinddm_tpu_torch.ops.dw_conv` (counted there), and the two 3x3
-stages are ``csrc/conv_block.cu`` (counted here; see the note in that
+stages are ``csrc/conv_block.cu`` on the tensor cores, 3xTF32 in float32
+and bf16 ``mma.sync`` in bfloat16 (counted here; see the note in that
 file). On a CPU tensor it runs :func:`conv_block_reference`. Layout is
 NHWC for activations and HWIO for weights, the JAX package's, so the
 kernels read the weights as they are.

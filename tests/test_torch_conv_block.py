@@ -3,7 +3,9 @@
 
 The port's wrappers take their plain-PyTorch versions on CPU tensors; the
 CUDA kernels themselves are held against those plain versions on the card
-by ``chip_smoke.py``.
+by ``chip_smoke.py``. The fp32 kernel's 3xTF32 arithmetic is emulated here
+(``_tf32_rna``, ``_stage_3xtf32``) to show on the CPU that it keeps the
+fp32 bound and that single-pass TF32 does not.
 """
 
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from sinddm_tpu.ops.pallas_conv import fused_conv_block
 from sinddm_tpu.ops.pallas_dw import depthwise_conv5x5 as jax_depthwise
 from sinddm_tpu_torch.ops import conv_block as cb
 from sinddm_tpu_torch.ops import dw_conv as dw
+from torch_clip_draws import one_torch_thread  # noqa: F401  (fixture)
 
 
 def _block(seed, b, h, w, c, co, identity):
@@ -125,3 +128,71 @@ def test_wrappers_check_shapes_and_types():
         dw.depthwise_conv5x5(args[0], args[2][:3], args[3])
     with pytest.raises(TypeError):
         dw.depthwise_conv5x5(args[0].double(), args[2].double(), args[3].double())
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to the nearest value with
+    10 stored mantissa bits, ties away from zero. Adding half a TF32 unit to
+    the sign-magnitude pattern and clearing the 13 low bits does both."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _stage_3xtf32(x, w, split=True):
+    """One 3x3 'SAME' product as the kernel forms it in fp32: K in chunks of
+    8 channels, the 9 taps of a chunk in turn, each operand split as
+    hi = rna(a), lo = rna(a - hi), and lo*hi, hi*lo, hi*hi added in that
+    order (lo*lo dropped) into the chunk's partial sum, which is then added
+    to the running sum; ``split=False`` is single-pass TF32 (hi*hi)."""
+    b, h, wd, c = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((b * h * wd, w.shape[-1]), dtype=torch.float32)
+    for k0 in range(0, c, 8):
+        part = torch.zeros_like(acc)
+        for t in range(9):
+            dy, dx = divmod(t, 3)
+            a = xp[:, dy : dy + h, dx : dx + wd, k0 : k0 + 8].reshape(-1, min(8, c - k0))
+            bw = w[dy, dx, k0 : k0 + 8]
+            a_hi, b_hi = _tf32_rna(a), _tf32_rna(bw)
+            if split:
+                part += _tf32_rna(a - a_hi) @ b_hi
+                part += a_hi @ _tf32_rna(bw - b_hi)
+            part += a_hi @ b_hi
+        acc += part
+    return acc.reshape(b, h, wd, -1)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0 + 2.0**-10  # a TF32 value: the last stored bit set
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), one + 2.0**-11, 1.0 + 2.0**-12,
+                      1.0 + 2.0**-11 - 2.0**-23, 3.0, 0.0], dtype=torch.float32)
+    want = [one, -one, 1.0 + 2.0**-9, 1.0, 1.0, 3.0, 0.0]  # ties go away from zero
+    assert _tf32_rna(x).tolist() == want
+
+
+def test_3xtf32_stage_keeps_the_fp32_bound_where_tf32_does_not(one_torch_thread):  # noqa: F811
+    """conv1 + bias + GELU at l3's K (160 -> 160, K = 1440), fan-in-scaled
+    weights as chip_smoke.py's, against conv_block_reference's stage: the
+    reference block with a delta dw kernel (h1 = x), a delta W2 and a zero
+    projection returns gelu(conv3x3(x, W1) + b1) exactly. The emulated
+    3xTF32 stage is held at a tenth of the card's fp32 bound (atol 2e-4 +
+    rtol 2e-4); single-pass TF32 leaves the whole bound on this seed."""
+    c = co = 160
+    rng = np.random.default_rng(8)
+    f = lambda *shape, scale=1.0: torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))  # noqa: E731
+    x, w1, b1 = f(2, 4, 6, c), f(3, 3, c, co, scale=(9 * c) ** -0.5), f(co, scale=0.1)
+    wdw = torch.zeros((5, 5, c))
+    wdw[2, 2] = 1.0
+    w2 = torch.zeros((3, 3, co, co))
+    w2[1, 1] = torch.eye(co)
+    ref = cb.conv_block_reference(x, torch.zeros((2, c)), wdw, torch.zeros(c), w1, b1, w2,
+                                  torch.zeros(co), torch.zeros((c, co)), torch.zeros(co))
+    tol = 2e-4 + 2e-4 * ref.abs()
+    ratio = {}
+    for split in (True, False):
+        out = cb.gelu(_stage_3xtf32(x, w1, split) + b1)
+        ratio[split] = ((out - ref).abs() / tol).max().item()
+    print(f"max |emulated - reference| / (2e-4 + 2e-4 |reference|): 3xTF32 {ratio[True]:.3e}, "
+          f"single-pass TF32 {ratio[False]:.3e}")
+    assert ratio[True] <= 0.1, ratio
+    assert ratio[False] > 1.0, ratio

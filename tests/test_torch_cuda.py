@@ -57,7 +57,18 @@ def _block(gen, b, h, w, c, co, dtype):
 @pytest.mark.parametrize(
     "b,h,w,c,co",
     [(1, 1, 1, 3, 80), (2, 7, 9, 8, 16), (1, 19, 21, 160, 160), (3, 8, 16, 80, 160),
-     (1, 5, 33, 12, 24), (2, 17, 3, 16, 8), (1, 9, 250, 160, 80)],
+     (1, 5, 33, 12, 24), (2, 17, 3, 16, 8), (1, 9, 250, 160, 80),
+     # the walk's widths, a few rows each (ragged in H and W)
+     (1, 9, 64, 160, 160), (1, 10, 90, 80, 160), (1, 3, 126, 160, 80), (1, 7, 177, 160, 160),
+     (1, 2, 248, 3, 80),
+     # l1's C = 3 -> 80 and l4's 160 -> 80, both through the projection
+     (2, 11, 20, 3, 80), (2, 5, 17, 160, 80),
+     # Co not a multiple of the 80-channel tile: 100 takes 16-byte copies, 90 plain loads
+     (1, 6, 20, 16, 100), (1, 6, 20, 90, 90),
+     # C = 12: 16-byte copies in fp32, plain loads in bf16
+     (2, 9, 19, 12, 12),
+     # batch > 1 with several chunks in the ring
+     (4, 9, 17, 80, 80)],
 )
 def test_conv_block_matches_plain(gen, b, h, w, c, co, dtype):
     args = _block(gen, b, h, w, c, co, dtype)
@@ -72,6 +83,26 @@ def test_conv_block_matches_plain(gen, b, h, w, c, co, dtype):
     else:
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shifted", ["x", "w1", "wres"])
+def test_conv_block_copy_and_plain_staging_agree(gen, shifted, dtype):
+    """A tensor 16-byte aligned with a channel count the copies take is
+    staged by cp.async; the same values at an address 4 bytes (fp32) / 2
+    bytes (bf16) off are staged by plain loads. The products see the same
+    shared-memory tile, so the outputs are equal."""
+    args = list(_block(gen, 2, 9, 19, 16, 24, dtype))
+    index = {"x": 0, "w1": 4, "wres": 8}[shifted]
+    t = args[index].to(dtype)
+    buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+    buf[1:] = t.reshape(-1)
+    off = buf[1:].view(t.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    aligned = list(args)
+    aligned[index] = t.clone()
+    args[index] = off
+    torch.testing.assert_close(cb.conv_block(*args), cb.conv_block(*aligned), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 3), (2, 19, 21, 8), (1, 6, 130, 160), (3, 2, 5, 80)])
