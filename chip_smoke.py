@@ -12,7 +12,9 @@ each of which exits non-zero when it fails:
    3x3 kernel holds tensor-core ``HMMA`` instructions (TF32 in fp32, BF16 in
    bf16), so no stage runs on the SIMT cores;
 3. hold each kernel against its plain version at the main path's shapes
-   (the four dim=160 blocks at 16x186x248, fp32 and bf16; the eight view-warp
+   (the four dim=160 blocks at 16x186x248, fp32 and bf16; the depthwise
+   kernel at each of its walk calls there, C = 3 / 80 / 160 with the block's
+   per-batch vector, fp32 and bf16, and its launch plan; the eight view-warp
    kernels at 16 images x 8 views of 224x298 from 186x248x3, value and image
    gradient; win3 also against the exact warp) and at ragged shapes
    (1x19x21; a 300-row source), and, for every warp kernel, one launch
@@ -24,16 +26,17 @@ each of which exits non-zero when it fails:
    (``F.conv2d`` with groups, ``F.grid_sample``; for win3 the library call
    computes the exact warp, not the split one); a conv block also beside
    its four bounds (fp32 SIMT, TF32, 3xTF32, bf16) and cuDNN's time for its
-   two 3x3 products alone (no single call computes a block); the five warp forwards and
-   the whole-image adjoint also as the kernel alone (their C entry, no
-   wrapper);
-   print the whole-image adjoint's patch plan (patches that sum in the
+   two 3x3 products alone (no single call computes a block); the depthwise
+   kernel at C = 3 / 80 / 160, fp32 and bf16; the five warp forwards and
+   the two patch adjoints (whole-image and windowed) also as the kernel
+   alone (their C entry, no wrapper);
+   print the patch adjoints' plan (patches that sum in the
    shared-memory box or scatter directly, global atomics of each); check
    with torch.profiler that the win3 entry is one launch;
 5. sample the full 5-scale balloons pyramid at dim=160, batch 16, fp32,
    with seeded random weights, through the kernels: check shapes, finite
    values and the launch counts; profile a second walk (device time by
-   kernel, idle share); compare one finest-scale denoiser call, and a
+   kernel, the depthwise kernels' share, idle share); compare one finest-scale denoiser call, and a
    batch-2 walk, with the plain path;
 6. the CLIP-guided path: ``clip_content`` (strength 0.3, fill factor 0.3) on
    the same pyramid and denoiser with a seeded random ViT-B/32 at its
@@ -58,8 +61,10 @@ Tolerances (max |kernel - plain| against the plain version's values):
     the same fp32 products in another order than cuDNN;
   * bf16 conv block: max error <= 2e-2 of max |plain| -- both round h1, g
     and the output to bf16, and a sum-order difference can flip a rounding;
-  * depthwise (fp32) against a float64 plain version: atol 1e-5, the bound
-    the JAX package holds its TPU kernel to;
+  * depthwise against a float64 plain version on the same values: fp32 atol
+    1e-5, the bound the JAX package holds its TPU kernel to; bf16 within
+    half a bf16 ulp of the exact value, + 1e-4 for the fp32 sum (the sum is
+    rounded once, and a rounding tie may go either way);
   * finest-scale denoiser call (four blocks chained): 1e-4 of max |plain|;
   * batch-2 walk, 246 chained denoiser calls: 2e-3 absolute on [-1, 1];
   * view-warp kernels against ``bilinear_sample_mm`` (TF32 off): value atol
@@ -124,6 +129,7 @@ BALLOONS_T_IDEAL = (100, 52, 41, 31, 22)
 DIM = 160
 BATCH = 16
 BLOCKS = (("l1", 3, 80), ("l2", 80, 160), ("l3", 160, 160), ("l4", 160, 80))
+DW_CHANNELS = (3, DIM // 2, DIM)  # the depthwise kernel's C at l1, l2, l3 / l4
 RAGGED_HW = (19, 21)
 N_AUG, VIEW_CHUNK = 16, 8
 STRENGTH, FILL_FACTOR, STOP_GUIDANCE = 0.3, 0.3, 3
@@ -188,6 +194,24 @@ def block_inputs(gen, b, h, w, c, co, dtype):
     )
 
 
+def dw_inputs(gen, shape, dtype, with_vec=True):
+    """Seeded depthwise inputs (x, weights, bias, the block's per-batch vec) of one type."""
+    b, c = shape[0], shape[-1]
+    n = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device="cuda") * scale).to(dtype)  # noqa: E731
+    return n(*shape), n(5, 5, c, scale=0.2), n(c, scale=0.1), n(b, c, scale=0.2) if with_vec else None
+
+
+def dw_err(out, x, wdw, bias, vec):
+    """Max |kernel - float64 plain version| on the same values, and whether
+    it is within the bound of its type."""
+    from sinddm_tpu_torch.ops.dw_conv import depthwise_conv5x5_reference
+
+    ref = depthwise_conv5x5_reference(*(None if t is None else t.double() for t in (x, wdw, bias, vec)))
+    d = (out.double() - ref).abs()
+    ok = d.max().item() <= 1e-5 if out.dtype == torch.float32 else bool((d <= 1e-4 + 2.0**-8 * ref.abs()).all())
+    return d.max().item(), ok
+
+
 def block_work(b, h, w, c, co, itemsize):
     """FLOPs and bytes one conv block must do (inputs read once, output written once)."""
     proj = c != co
@@ -246,8 +270,8 @@ def run_kernel(build, entry, img, coords, fill, ct=None):
     """A launcher of one C entry on buffers made here, without the wrapper's
     checks, copies and allocation: the kernel alone. ``entry`` is a forward
     (``whole_fwd``, ``win_fwd``, ``winx_fwd``, ``winb_fwd``, ``win3_fwd``;
-    fill ``fill``) or ``whole_bwd`` (cotangent ``ct``, frames as wide as
-    ``coords``' last sample axis). Fails unless a first launch returns
+    fill ``fill``) or a patch adjoint, ``whole_bwd`` or ``win_bwd``
+    (cotangent ``ct``, frames as wide as ``coords``' last sample axis). Fails unless a first launch returns
     success."""
     from sinddm_tpu_torch.ops.warp_sample import adjoint_patch
 
@@ -462,22 +486,28 @@ def main() -> None:
                     results["conv_block_err"] = max_abs
                 del args, out, ref, d
 
-    for shape in ((BATCH, h_fin, w_fin, DIM), (BATCH, h_fin, w_fin, DIM // 2), (1,) + RAGGED_HW + (3,)):
-        x = torch.randn(shape, generator=gen, device="cuda")
-        wdw = torch.randn((5, 5, shape[-1]), generator=gen, device="cuda") * 0.2
-        bias = torch.randn((shape[-1],), generator=gen, device="cuda") * 0.1
-        out = dw.depthwise_conv5x5(x, wdw, bias)
-        ref = dw.depthwise_conv5x5_reference(x.double(), wdw.double(), bias.double())
-        torch.cuda.synchronize()
-        _, max_abs, rel = err_stats(out, ref)
-        ok = max_abs <= 1e-5
-        say(f"[check dw_conv fp32 {'x'.join(map(str, shape))}] max_abs {max_abs:.3e} vs float64 "
-            f"(atol 1e-5) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail("dw_conv disagrees with its float64 plain version")
-        if shape[-1] == DIM:
-            results["dw_err"] = max_abs
-        del x, out, ref
+    # the depthwise kernel at each of its walk calls (with the block's vector)
+    # and at ragged shapes without one, fp32 and bf16; and its launch plan
+    for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for shape, with_vec in [((BATCH, h_fin, w_fin, c), True) for c in DW_CHANNELS] + [
+                ((1,) + RAGGED_HW + (c,), False) for c in (3, DIM)]:
+            args = dw_inputs(gen, shape, dtype, with_vec)
+            out = dw.depthwise_conv5x5(*args)
+            torch.cuda.synchronize()
+            max_abs, ok = dw_err(out, *args)
+            say(f"[check dw_conv {dname} {'x'.join(map(str, shape))}{' +vec' if with_vec else ''}] max_abs "
+                f"{max_abs:.3e} vs float64 ({'atol 1e-5' if dtype == torch.float32 else '<= 1e-4 + 2^-8 |exact|'}) "
+                f"kernel {dw.dw_plan(shape, dtype)['kernel']} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"dw_conv {dname} {shape} disagrees with its float64 plain version")
+            if (dname, shape) == ("fp32", (BATCH, h_fin, w_fin, DIM)):
+                results["dw_err"] = max_abs
+            del args, out
+    for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for what, shape in (("l3", (BATCH, h_fin, w_fin, DIM)),
+                            ("smallest scale l2", (BATCH,) + BALLOONS_SIZES_HW[0] + (DIM // 2,)),
+                            ("smallest scale l3", (BATCH,) + BALLOONS_SIZES_HW[0] + (DIM,))):
+            say(f"[plan dw_conv {dname} {what} {'x'.join(map(str, shape))}] {json.dumps(dw.dw_plan(shape, dtype))}")
 
     # view-warp kernels, value and image gradient: the main path's launch (16
     # images, one chunk of 8 views of 224x298, homographies from the port's
@@ -592,23 +622,28 @@ def main() -> None:
                                              shape=f"{BATCH}x{h_fin}x{w_fin}x{c}->{co} fp32")
             del args, h1_cl, g_cl, w1_cl, w2_cl
 
-    x = torch.randn((BATCH, h_fin, w_fin, DIM), generator=gen, device="cuda")
-    wdw = torch.randn((5, 5, DIM), generator=gen, device="cuda") * 0.2
-    bias = torch.randn((DIM,), generator=gen, device="cuda") * 0.1
-    w_lib = wdw.permute(2, 0, 1)[:, None].contiguous()
-    x_lib = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels_last)
-    k_ms = time_ms(lambda: dw.depthwise_conv5x5(x, wdw, bias), reps=20)
-    p_ms = time_ms(lambda: dw.depthwise_conv5x5_reference(x, wdw, bias), reps=20)
-    l_ms = time_ms(lambda: F.conv2d(x_lib, w_lib, bias, padding=2, groups=DIM), reps=20)
-    n_el = x.numel()
-    flops, nbytes = 2 * 25 * n_el, 4 * (2 * n_el + 26 * DIM)
-    b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
-    say(f"[time dw_conv fp32 {BATCH}x{h_fin}x{w_fin}x{DIM}] kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-        f"library_ms {l_ms:.4f} GFLOP {flops / 1e9:.2f} GB {nbytes / 1e9:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-        f"GB/s {nbytes / k_ms / 1e6:.1f}")
-    results["dw_conv"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                              shape=f"{BATCH}x{h_fin}x{w_fin}x{DIM} fp32")
-    del x, x_lib
+    # the depthwise kernel at each walk call at 16x186x248 (the block's call,
+    # with its vector), beside its bytes bound, its plain version and one
+    # F.conv2d (groups=C, channels-last, + bias: no vector)
+    for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for c in DW_CHANNELS:
+            x, wdw, bias, vec = dw_inputs(gen, (BATCH, h_fin, w_fin, c), dtype)
+            w_lib = wdw.permute(2, 0, 1)[:, None].contiguous()
+            x_lib = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels_last)
+            k_ms = time_ms(lambda: dw.depthwise_conv5x5(x, wdw, bias, vec), reps=20)
+            p_ms = time_ms(lambda: dw.depthwise_conv5x5_reference(x, wdw, bias, vec), reps=5)
+            l_ms = time_ms(lambda: F.conv2d(x_lib, w_lib, bias, padding=2, groups=c), reps=20)
+            n_el = x.numel()
+            flops, nbytes = 2 * 25 * n_el, x.element_size() * (2 * n_el + 26 * c + BATCH * c)
+            b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
+            shape = f"{BATCH}x{h_fin}x{w_fin}x{c} {dname} +vec"
+            say(f"[time dw_conv {shape}] kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
+                f"GFLOP {flops / 1e9:.2f} GB {nbytes / 1e9:.4f} bound_ms {b_ms:.4f} ({b_by}) share of the bound "
+                f"{b_ms / k_ms:.3f} GB/s {nbytes / k_ms / 1e6:.1f} kernel {dw.dw_plan(x.shape, dtype)['kernel']}")
+            if (dname, c) == ("fp32", DIM):
+                results["dw_conv"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                                          shape=shape)
+            del x, x_lib, wdw, w_lib, bias, vec
 
     # the warp kernels: one launch of the main path (16 images x 8 views), and
     # all 256 views of a guided step in one launch
@@ -650,7 +685,7 @@ def main() -> None:
                                       split3=entry.startswith("win3"))
             b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
             alone = ""
-            if entry == "whole_bwd" or entry.endswith("_fwd"):
+            if entry in ("whole_bwd", "win_bwd") or entry.endswith("_fwd"):
                 alone_ms = time_ms(run_kernel(_build, entry, warp_img, coords, 1.0, ct), reps=20)  # its C entry
                 alone = f"kernel_alone_ms {alone_ms:.4f} "
             say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} {alone}plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
@@ -662,7 +697,8 @@ def main() -> None:
                 if alone:
                     results["warp"][entry]["kernel_alone_ms"] = alone_ms
         plan = ws.whole_adjoint_patches(coords3, frame[1], (h_fin, w_fin), 3)
-        say(f"[plan warp whole_bwd {shape}] {patch_plan(plan)}")
+        for entry in ("whole_bwd", "win_bwd"):  # one patch body, one plan
+            say(f"[plan warp {entry} {shape}] {patch_plan(plan)}")
         if n_views == VIEW_CHUNK:  # the win3 entry is one launch: the split happens in the kernel
             prof = profile_walk(lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0))
             if prof is None:
@@ -740,6 +776,9 @@ def main() -> None:
             f"idle_share {1 - busy / window:.4f} kernels {sum(n for _, n in by_name.values())}")
         for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
             say(f"[profile] {us / busy:7.2%} {us / 1e3:10.1f} ms {n:6d}x {kname[:110]}")
+        for kname in sorted({k for k in by_name if "dw5x5" in k}):
+            us, n = by_name[kname]
+            say(f"[profile dw_conv] {us / busy:7.2%} of device time {us / 1e3:10.1f} ms {n:6d}x {kname[:110]}")
 
     small = {}
     for path, fn in (("kernel", model), ("plain", plain_fn)):

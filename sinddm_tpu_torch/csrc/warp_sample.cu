@@ -62,10 +62,12 @@
 // passes). 2-D patches of a view with their source box staged in shared
 // memory (cp.async) measured slower for these forwards: cheaper gathers did
 // not repay the box's reduction, barriers and copy (PERF.md).
-// The whole-image adjoint is the other way round: its atomics, not
-// its stream, bound it, so it takes a 2-D patch of a view and sums the
-// patch's terms in a shared-memory box before one coalesced global atomic
-// an element. The win and win3 adjoints still run a thread a sample-channel.
+// The adjoints are the other way round: their atomics, not their stream,
+// bound them, so the whole-image adjoint and the windowed one (which
+// computes the same function) run one patch body (patch_bwd) in their own
+// kernels: a block takes a 2-D patch of a view and sums the patch's terms in
+// a shared-memory box before one coalesced global atomic an element. The
+// win3 adjoint still runs a thread a sample-channel.
 //
 // C interface, loaded with ctypes: every entry returns the cudaError_t of
 // its launch (0 on success) and never synchronises.
@@ -128,34 +130,6 @@ __device__ __forceinline__ Split split_bf16(float v) {
   s.hi = __bfloat162float(__float2bfloat16_rn(v));
   s.lo = __bfloat162float(__float2bfloat16_rn(v - s.hi));
   return s;
-}
-
-// Adjoint of win, winx and winb: gimg[b, y, x, c] += A[q, y] * ct[b, q, c] * B[q, x]
-// over every pixel q of every view of image b. gimg is zeroed by the caller
-// (the C entry below). One thread per (b, q, c), up to four atomics.
-__global__ void __launch_bounds__(kWarpThreads)
-warp_win_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ coords,
-                    float* __restrict__ gimg, int B, int H, int W, int C, int N) {
-  const long long i = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
-  if (i >= (long long)B * N * C) return;
-  const int c = (int)(i % C);
-  const long long p = i / C;
-  const int b = (int)(p / N);
-  const Taps tx = hat_taps(coords[2 * p], W);
-  const Taps ty = hat_taps(coords[2 * p + 1], H);
-  const float g = ct[i];
-  float* im = gimg + (size_t)b * H * W * C + c;
-  float* r0 = im + (size_t)ty.i0 * W * C;
-  float* r1 = im + (size_t)ty.i1 * W * C;
-  const float g0 = ty.w0 * g, g1 = ty.w1 * g;
-  if (ty.w0 != 0.f) {
-    if (tx.w0 != 0.f) atomicAdd(r0 + tx.i0 * C, g0 * tx.w0);
-    if (tx.w1 != 0.f) atomicAdd(r0 + tx.i1 * C, g0 * tx.w1);
-  }
-  if (ty.w1 != 0.f) {
-    if (tx.w0 != 0.f) atomicAdd(r1 + tx.i0 * C, g1 * tx.w0);
-    if (tx.w1 != 0.f) atomicAdd(r1 + tx.i1 * C, g1 * tx.w1);
-  }
 }
 
 // a * b by three bf16 x bf16 products, each exact in fp32, summed as the TPU
@@ -416,11 +390,13 @@ warp_win3_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ coo
   }
 }
 
-// ---- the whole-image adjoint: a 2-D patch of a view a block -----------------
+// ---- the adjoints of the exact warp: a 2-D patch of a view a block ----------
 //
 // gimg[b, y, x, c] = sum_q A[q, y] ct[b, q, c] B[q, x] over the N samples of
 // image b, replacing _bwd_kernel (sinddm_tpu/ops/pallas_warp.py, the
-// bilinear_sample_pallas adjoint). The samples are frames FW columns wide,
+// bilinear_sample_pallas adjoint) and _bwd_kernel_win (the adjoint win,
+// winx and winb share; pallas_warp.py's windowed kernels give "Identical
+// results" to the whole-image ones). The samples are frames FW columns wide,
 // row after row (the views' rows one after another; flat coords are one row
 // of N). What bounds it on the card is the atomics: each sample adds up to
 // 4 x C terms, and a view magnifies its crop, so neighbouring samples share
@@ -474,15 +450,27 @@ __device__ __forceinline__ void scatter4(float* dst, int row0, int row1, int col
   }
 }
 
+// The terms of the exact warp's adjoint (whole, win, winx, winb): the hat
+// weights of hat_taps, (ty.w_j * g) * tx.w_i at each weighted tap pair. The
+// patch body takes its taps and terms from such a struct, so that another
+// adjoint (win3's split products) can run on it with terms of its own.
+struct ExactTerms {
+  static __device__ __forceinline__ Taps taps(float v, int n) { return hat_taps(v, n); }
+  static __device__ __forceinline__ void scatter(float* dst, int row0, int row1, int col0, int col1,
+                                                 const Taps& ty, const Taps& tx, float g) {
+    scatter4(dst, row0, row1, col0, col1, ty, tx, g);
+  }
+};
+
 // ct [B, N, C], coords [B, N] (x, y), gimg [B, H, W, C] zeroed by the caller;
 // block b * tiles + t takes patch t (row-major over col_tiles patches a row
 // of patches) of image b. kC = 3 is the path's, its cotangent loaded before
-// the box is known; kC = 0 takes C at run time.
-template <int kC>
-__global__ void __launch_bounds__(kPatchThreads, 4)
-warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ coords,
-                      float* __restrict__ gimg, int H, int W, int C_, int N, int FW, int pw_log2,
-                      int col_tiles, int tiles) {
+// the box is known; kC = 0 takes C at run time. The body of both adjoint
+// kernels below.
+template <int kC, class Terms>
+__device__ __forceinline__ void patch_bwd(const float* __restrict__ ct, const float2* __restrict__ coords,
+                                          float* __restrict__ gimg, int H, int W, int C_, int N, int FW,
+                                          int pw_log2, int col_tiles, int tiles) {
   __shared__ float box[kBoxFloats];
   __shared__ int warp_box[kPatchWarps][4];
   const int C = kC > 0 ? kC : C_;
@@ -511,8 +499,8 @@ warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ c
 #pragma unroll
       for (int c = 0; c < kC; ++c) g[k][c] = in ? ct[q[k] * kC + c] : 0.f;
     }
-    ty[k] = hat_taps(xy.y, H);
-    tx[k] = hat_taps(xy.x, W);
+    ty[k] = Terms::taps(xy.y, H);
+    tx[k] = Terms::taps(xy.x, W);
     live[k] = has_tap(ty[k]) && has_tap(tx[k]);
     if (live[k]) {
       x_lo = min(x_lo, tap_lo(tx[k]));
@@ -555,7 +543,7 @@ warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ c
     for (int k = 0; k < kPerThread; ++k) {
       if (!live[k]) continue;
       const int r0 = ty[k].i0 * W * C, r1 = ty[k].i1 * W * C, c0 = tx[k].i0 * C, c1 = tx[k].i1 * C;
-      for (int c = 0; c < C; ++c) scatter4(im + c, r0, r1, c0, c1, ty[k], tx[k], grad(k, c));
+      for (int c = 0; c < C; ++c) Terms::scatter(im + c, r0, r1, c0, c1, ty[k], tx[k], grad(k, c));
     }
     return;
   }
@@ -564,10 +552,10 @@ warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ c
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     if (!live[k]) continue;
-    // offsets of taps without weight may leave the box; scatter4 skips them
+    // offsets of taps without weight may leave the box; the terms skip them
     const int r0 = (ty[k].i0 - y_lo) * row_len, r1 = (ty[k].i1 - y_lo) * row_len;
     const int c0 = (tx[k].i0 - x_lo) * C, c1 = (tx[k].i1 - x_lo) * C;
-    for (int c = 0; c < C; ++c) scatter4(box + c, r0, r1, c0, c1, ty[k], tx[k], grad(k, c));
+    for (int c = 0; c < C; ++c) Terms::scatter(box + c, r0, r1, c0, c1, ty[k], tx[k], grad(k, c));
   }
   __syncthreads();
   for (int r = warp; r < bh; r += kPatchWarps) {
@@ -578,6 +566,27 @@ warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ c
       if (v != 0.f) atomicAdd(dst + i, v);
     }
   }
+}
+
+// One kernel an adjoint, so that a profiler tells them apart.
+template <int kC>
+__global__ void __launch_bounds__(kPatchThreads, 4)
+warp_whole_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ coords,
+                      float* __restrict__ gimg, int H, int W, int C, int N, int FW, int pw_log2,
+                      int col_tiles, int tiles) {
+  patch_bwd<kC, ExactTerms>(ct, coords, gimg, H, W, C, N, FW, pw_log2, col_tiles, tiles);
+}
+
+// Replaces _bwd_kernel_win, which sums the same terms as _bwd_kernel over a
+// window of source rows. It was a thread a sample-channel issuing its up-to-4
+// global atomics straight to the gradient; on the patch body it adds about a
+// sixth of them, coalesced.
+template <int kC>
+__global__ void __launch_bounds__(kPatchThreads, 4)
+warp_win_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ coords,
+                    float* __restrict__ gimg, int H, int W, int C, int N, int FW, int pw_log2,
+                    int col_tiles, int tiles) {
+  patch_bwd<kC, ExactTerms>(ct, coords, gimg, H, W, C, N, FW, pw_log2, col_tiles, tiles);
 }
 
 inline int blocks_for(long long n) { return (int)((n + kWarpThreads - 1) / kWarpThreads); }
@@ -601,6 +610,32 @@ inline int launch_run_fwd(RunFwdKernel kernel3, RunFwdKernel kernel0, const void
   return (int)cudaGetLastError();
 }
 
+// A patch-body adjoint, kernel3 (C = 3) or kernel0 (any C): gimg zeroed, then
+// B x tiles blocks of kPatchThreads threads.
+using PatchBwdKernel = void (*)(const float*, const float2*, float*, int, int, int, int, int, int, int, int);
+
+inline int launch_patch_bwd(PatchBwdKernel kernel3, PatchBwdKernel kernel0, const void* ct, const void* coords,
+                            void* gimg, int B, int H, int W, int C, int N, int frame_w, int patch_w, int device,
+                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(gimg, 0, (size_t)B * H * W * C * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || N == 0) return 0;
+  int pw_log2 = 5;
+  while (pw_log2 < kPatchLog2 && (1 << pw_log2) < patch_w) ++pw_log2;
+  if (frame_w <= 0 || N % frame_w != 0 || patch_w != (1 << pw_log2)) return (int)cudaErrorInvalidValue;
+  const int rows_a_patch = kPatch / patch_w;
+  const int col_tiles = (frame_w + patch_w - 1) / patch_w;
+  const int tiles = (N / frame_w + rows_a_patch - 1) / rows_a_patch * col_tiles;
+  const PatchBwdKernel kernel = C == 3 ? kernel3 : kernel0;
+  kernel<<<B * tiles, kPatchThreads, 0, s>>>(
+      static_cast<const float*>(ct), static_cast<const float2*>(coords), static_cast<float*>(gimg), H, W, C, N,
+      frame_w, pw_log2, col_tiles, tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sinddm
 
 extern "C" {
@@ -618,23 +653,8 @@ int sinddm_warp_whole_fwd(const void* img, const void* coords, void* out, float 
 // two from 32 to kPatch.
 int sinddm_warp_whole_bwd(const void* ct, const void* coords, void* gimg, int B, int H, int W,
                           int C, int N, int frame_w, int patch_w, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(gimg, 0, (size_t)B * H * W * C * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0 || N == 0) return 0;
-  int pw_log2 = 5;
-  while (pw_log2 < sinddm::kPatchLog2 && (1 << pw_log2) < patch_w) ++pw_log2;
-  if (frame_w <= 0 || N % frame_w != 0 || patch_w != (1 << pw_log2)) return (int)cudaErrorInvalidValue;
-  const int rows_a_patch = sinddm::kPatch / patch_w;
-  const int col_tiles = (frame_w + patch_w - 1) / patch_w;
-  const int tiles = (N / frame_w + rows_a_patch - 1) / rows_a_patch * col_tiles;
-  const auto kernel = C == 3 ? &sinddm::warp_whole_bwd_kernel<3> : &sinddm::warp_whole_bwd_kernel<0>;
-  kernel<<<B * tiles, sinddm::kPatchThreads, 0, s>>>(
-      static_cast<const float*>(ct), static_cast<const float2*>(coords), static_cast<float*>(gimg), H,
-      W, C, N, frame_w, pw_log2, col_tiles, tiles);
-  return (int)cudaGetLastError();
+  return sinddm::launch_patch_bwd(&sinddm::warp_whole_bwd_kernel<3>, &sinddm::warp_whole_bwd_kernel<0>, ct,
+                                  coords, gimg, B, H, W, C, N, frame_w, patch_w, device, stream);
 }
 
 // As sinddm_warp_whole_fwd.
@@ -658,19 +678,11 @@ int sinddm_warp_winb_fwd(const void* img, const void* coords, void* out, float f
                                 coords, out, fill, B, H, W, C, N, device, stream);
 }
 
-// ct [B,N,C], coords [B,N,2] -> gimg [B,H,W,C], zeroed here first.
+// As sinddm_warp_whole_bwd: the adjoint of win, winx and winb.
 int sinddm_warp_win_bwd(const void* ct, const void* coords, void* gimg, int B, int H, int W, int C,
-                        int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(gimg, 0, (size_t)B * H * W * C * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  sinddm::warp_win_bwd_kernel<<<sinddm::blocks_for((long long)B * N * C), sinddm::kWarpThreads, 0,
-                                s>>>(static_cast<const float*>(ct),
-                                     static_cast<const float*>(coords), static_cast<float*>(gimg),
-                                     B, H, W, C, N);
-  return (int)cudaGetLastError();
+                        int N, int frame_w, int patch_w, int device, void* stream) {
+  return sinddm::launch_patch_bwd(&sinddm::warp_win_bwd_kernel<3>, &sinddm::warp_win_bwd_kernel<0>, ct,
+                                  coords, gimg, B, H, W, C, N, frame_w, patch_w, device, stream);
 }
 
 // As sinddm_warp_winx_fwd; the fp32 image is split into its bf16 parts in the kernel.

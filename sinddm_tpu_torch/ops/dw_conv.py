@@ -7,7 +7,7 @@ given the optional per-batch ``vec``, is the first stage of the conv block
 and so runs on the sampling path. On a CUDA tensor,
 :func:`depthwise_conv5x5` launches ``csrc/dw_conv.cu``; on a CPU tensor it
 runs :func:`depthwise_conv5x5_reference`. NHWC activations, [5, 5, C]
-weights.
+weights. :func:`dw_plan` reckons how the kernel cuts a call into blocks.
 """
 
 from __future__ import annotations
@@ -23,6 +23,42 @@ launches = 0  # kernel launches made by depthwise_conv5x5; reset by the caller
 
 # the kernels' types, and the suffix of their C entries
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# csrc/dw_conv.cu dw5x5_ring_kernel's launch: channels a block, column
+# groups a block and output columns a group, threads an SM, the SMs of an
+# H100 SXM, the fewest rows a segment is cut to; the scalar kernel's threads
+SLAB, GROUPS, COLS, SM_THREADS, SMS, MIN_ROWS = 32, 8, 4, 512, 132, 8
+SCALAR_THREADS = 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dw_plan(shape, dtype) -> dict:
+    """How ``csrc/dw_conv.cu`` launches on a [B, H, W, C] input of ``dtype``
+    with 16-byte aligned tensors, as its C entry reckons it.
+
+    Where C * itemsize is a multiple of 16 the rolling-row kernel runs: a
+    block of ``threads`` takes ``seg_rows`` output rows x ``strip`` columns
+    x ``slab`` channels (clipped to the tensor), ``segments`` x ``strips`` x
+    ``slabs`` blocks an image. The blocks run in ``waves`` of ``slots``
+    (SMS x SM_THREADS / threads), and a block's time goes with its input
+    rows (``seg_rows`` + 4), so the rows are cut into the segments that give
+    the fewest waves x input rows a block, none under MIN_ROWS rows unless
+    H is. Other shapes take the scalar kernel, a thread an output."""
+    b, h, w, c = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    if c * size % 16:
+        return {"kernel": "dw5x5_kernel", "threads": SCALAR_THREADS, "blocks": _cdiv(b * h * w * c, SCALAR_THREADS)}
+    threads, strip = SLAB // 2 * GROUPS, GROUPS * COLS
+    slabs, strips = _cdiv(c, SLAB), _cdiv(w, strip)
+    base, slots = b * slabs * strips, SMS * (SM_THREADS // threads)
+    cost = lambda rows: _cdiv(base * _cdiv(h, rows), slots) * (rows + 4)  # noqa: E731
+    seg_rows = min((_cdiv(h, n) for n in range(1, _cdiv(h, MIN_ROWS) + 1)), key=lambda r: (cost(r), -r))
+    segments = _cdiv(h, seg_rows)
+    return {"kernel": "dw5x5_ring_kernel", "threads": threads, "slab": SLAB, "slabs": slabs, "strip": strip,
+            "strips": strips, "seg_rows": seg_rows, "segments": segments, "blocks": base * segments,
+            "slots": slots, "waves": _cdiv(base * segments, slots)}
 
 
 def depthwise_conv5x5_reference(

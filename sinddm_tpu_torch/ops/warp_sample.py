@@ -32,12 +32,14 @@ adjoint sums over every view of an image. The TPU kernels' limits (H <= 256,
 Every forward runs a block on a run of consecutive samples of one image, a
 thread on several samples with their channels; it loads coords as
 ``float2``, so they are handed over 8-byte aligned. The whole-image adjoint
-runs a block on a 2-D patch of a view (the frame width is the last sample
-axis of ``coords``; flat coords are one row): it sums the patch's terms in a
-shared-memory box over the source pixels they touch and adds the box to the
-gradient with one coalesced atomic an element, or, where the box does not
-fit (coords scattered over the source), adds each term to the gradient
-directly (:func:`whole_adjoint_patches` reckons which).
+and the windowed one (``win``, ``winx`` and ``winb``'s) run one body in two
+kernels: a block on a 2-D patch of a view (the frame width is the last
+sample axis of ``coords``; flat coords are one row) sums the patch's terms
+in a shared-memory box over the source pixels they touch and adds the box
+to the gradient with one coalesced atomic an element, or, where the box
+does not fit (coords scattered over the source), adds each term to the
+gradient directly (:func:`whole_adjoint_patches` reckons which, for
+either). The ``win3`` adjoint runs a thread a sample-channel.
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The adjoints accumulate with ``atomicAdd``, so
@@ -59,8 +61,8 @@ launches = {
 }
 # the adjoint kernel of each forward
 ADJOINT = {"whole": "whole", "win": "win", "winx": "win", "winb": "win", "win3": "win3"}
-# samples a block of the whole-image adjoint, and the floats its shared-memory
-# box holds (csrc/warp_sample.cu kPatch, kBoxFloats)
+# samples a block of the patch adjoints (whole and win), and the floats its
+# shared-memory box holds (csrc/warp_sample.cu kPatch, kBoxFloats)
 PATCH, BOX_FLOATS = 1024, 8192
 
 
@@ -151,14 +153,14 @@ def _plain(variant: str, img4: torch.Tensor, coords3: torch.Tensor, fill: float)
 
 def _float2(coords3: torch.Tensor) -> torch.Tensor:
     """Contiguous coords at an 8-byte address, copied where they are not: the
-    forwards and the whole-image adjoint load (x, y) as one float2."""
+    forwards and the patch adjoints load (x, y) as one float2."""
     coords3 = coords3.contiguous()
     return coords3.clone() if coords3.data_ptr() % 8 else coords3
 
 
 def adjoint_patch(n: int, frame_w: int):
-    """(rows, columns) of the frame that a block of the whole-image adjoint
-    takes, for ``n`` samples an image in frames ``frame_w`` wide: PATCH
+    """(rows, columns) of the frame that a block of a patch adjoint (whole,
+    win) takes, for ``n`` samples an image in frames ``frame_w`` wide: PATCH
     samples, 32 x 32, or as many columns as the frame's rows leave room for
     (1 x 1024 on a one-row frame, flat coords)."""
     rows = max(n // frame_w, 1)
@@ -177,7 +179,8 @@ def _hat_taps(v: torch.Tensor, n: int):
 
 
 def whole_adjoint_patches(coords3: torch.Tensor, frame_w: int, hw, c: int) -> dict:
-    """How the whole-image adjoint kernel takes these coords [B, N, 2], the
+    """How a patch adjoint kernel (the whole-image one, or win's, which runs
+    the same body) takes these coords [B, N, 2], the
     samples in frames ``frame_w`` wide, on a source ``hw`` of ``c`` channels,
     reckoned with tensor ops as the kernel decides: its patches (``patch``,
     rows x columns), how many sum in the shared-memory box (``shared``), how
@@ -243,17 +246,18 @@ def warp_adjoint(ct: torch.Tensor, coords3: torch.Tensor, img_shape, variant: st
     at ``coords3`` [B, N, 2], summed over all N samples of each image, by the
     adjoint kernel ``variant`` (``whole``, ``win`` or ``win3``). The kernel
     zeroes the gradient and scatters into it with ``atomicAdd``. ``whole``
-    takes the samples as frames ``frame_w`` wide (it must divide N; None:
-    one row of N) and works on 2-D patches of them."""
+    and ``win`` take the samples as frames ``frame_w`` wide (it must divide
+    N; None: one row of N) and work on 2-D patches of them."""
     b, h, w, c = img_shape
     n = coords3.shape[1]
     frame_w = max(n, 1) if frame_w is None else frame_w
-    if variant == "whole" and (frame_w <= 0 or n % frame_w):
+    patches = variant in ("whole", "win")
+    if patches and (frame_w <= 0 or n % frame_w):
         raise ValueError(f"frame width {frame_w} does not divide the {n} samples an image")
     if not ct.is_cuda:
         raise ValueError("warp_adjoint launches a kernel: it takes CUDA tensors")
     ct = ct.reshape(b, n, c).to(torch.float32).contiguous()
-    if variant == "whole":
+    if patches:
         coords3, extra = _float2(coords3), (frame_w, adjoint_patch(n, frame_w)[1])
     else:
         coords3, extra = coords3.contiguous(), ()

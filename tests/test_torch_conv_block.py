@@ -114,6 +114,79 @@ def test_depthwise_vec_is_the_blocks_first_stage():
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-5)
 
 
+# ragged shapes for the depthwise kernel's launch plan: W and H of 1 and
+# under the 5x5 window, strips past W, a last channel slab that is partial
+# (C = 24, 80 in bf16), C = 3 (the scalar kernel) and the walk's smallest call
+DW_PLAN_SHAPES = [(2, 1, 1, 4), (1, 2, 21, 8), (2, 5, 33, 80), (1, 37, 130, 24), (3, 130, 1, 16),
+                  (2, 19, 21, 3), (16, 48, 64, 80)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _dw_block(plan, shape, i):
+    """Block ``i`` of a rolling-row plan, decoded as csrc/dw_conv.cu decodes
+    ``blockIdx.x`` (slab fastest, then strip, segment, image): its image and
+    the half-open row, column and channel ranges of the outputs it writes."""
+    _, h, w, c = shape
+    slab, i = i % plan["slabs"], i // plan["slabs"]
+    strip, i = i % plan["strips"], i // plan["strips"]
+    seg, b = i % plan["segments"], i // plan["segments"]
+    y0, x0, c0 = seg * plan["seg_rows"], strip * plan["strip"], slab * plan["slab"]
+    return b, (y0, min(h, y0 + plan["seg_rows"])), (x0, min(w, x0 + plan["strip"])), (c0, min(c, c0 + plan["slab"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", DW_PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dw_plan_covers_every_output_once(shape, dtype):
+    """``dw_plan``, the depthwise kernel's launch arithmetic: the blocks of
+    the rolling-row kernel, decoded as the kernel decodes ``blockIdx.x``,
+    write every output exactly once, none is empty and none holds more than
+    a segment x strip x slab, so the input a block stages (its rows and
+    columns and two past them on each side, the part outside the image
+    zero-filled) fits its ring row of strip + 4 pixels."""
+    b, h, w, c = shape
+    plan = dw.dw_plan(shape, dtype)
+    if c * torch.empty((), dtype=dtype).element_size() % 16:
+        assert plan["kernel"] == "dw5x5_kernel" and plan["blocks"] * plan["threads"] >= b * h * w * c
+        return
+    assert plan["kernel"] == "dw5x5_ring_kernel"
+    assert (plan["slab"], plan["strip"], plan["threads"]) == (dw.SLAB, dw.GROUPS * dw.COLS, dw.SLAB // 2 * dw.GROUPS)
+    hits = torch.zeros(shape, dtype=torch.int32)
+    for i in range(plan["blocks"]):
+        bi, (y0, y1), (x0, x1), (c0, c1) = _dw_block(plan, shape, i)
+        assert 0 <= bi < b and 0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w and 0 <= c0 < c1 <= c
+        assert y1 - y0 <= plan["seg_rows"] and x1 - x0 <= plan["strip"] and c1 - c0 <= plan["slab"]
+        hits[bi, y0:y1, x0:x1, c0:c1] += 1
+    assert bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_dw_plan_fills_the_card_at_every_walk_call(dtype):
+    """Every depthwise call of the batch-16 balloons walk (5 scales, C = 3,
+    80, 160): C = 3 takes the scalar kernel; the others cut their rows into
+    the segments that give the fewest waves x input rows a block (against
+    every other cut), and their last wave holds at least 80% of a wave's
+    blocks, so the card is not left idle at the tail."""
+    for h, w in [(48, 64), (67, 90), (94, 126), (133, 177), (186, 248)]:
+        for c in (3, 80, 160):
+            plan = dw.dw_plan((16, h, w, c), dtype)
+            if c == 3:
+                assert plan["kernel"] == "dw5x5_kernel"
+                continue
+            base = 16 * plan["slabs"] * plan["strips"]
+            cost = {}
+            for n in range(1, _cdiv(h, dw.MIN_ROWS) + 1):
+                rows = _cdiv(h, n)
+                cost[rows] = _cdiv(base * _cdiv(h, rows), plan["slots"]) * (rows + 4)
+            assert cost[plan["seg_rows"]] == min(cost.values())
+            assert plan["blocks"] == base * _cdiv(h, plan["seg_rows"])
+            assert plan["blocks"] >= 0.8 * plan["waves"] * plan["slots"]
+    l3 = dw.dw_plan((16, 186, 248, 160), dtype)
+    assert (l3["slabs"], l3["strips"], l3["threads"], l3["slots"]) == (5, 8, 128, 528)
+
+
 def test_wrappers_check_shapes_and_types():
     args = _torch(_block(5, 1, 6, 6, 8, 16, False))
     bad = list(args)

@@ -9,7 +9,8 @@ The shapes here are small and ragged on purpose (W and H of 1, channel
 counts that are not multiples of the kernels' chunks and tiles); the full
 dim=160 shapes of the sampling path are checked by ``chip_smoke.py``.
 Tolerances as there: fp32 atol 2e-4 + rtol 2e-4 (sum order); bf16 max
-error <= 2e-2 of max |plain|; dw against float64 atol 1e-5; the warp kernels
+error <= 2e-2 of max |plain|; dw against float64 atol 1e-5 (bf16: half a
+bf16 ulp of the exact value, + 1e-4 for the fp32 sum); the warp kernels
 against their plain version (``bilinear_sample_mm``; for win3
 ``bilinear_sample_split3``): value atol 1e-5, image gradient 1e-5 of max
 |gradient| (the adjoints' atomics sum in an order that changes from run to
@@ -105,26 +106,46 @@ def test_conv_block_copy_and_plain_staging_agree(gen, shifted, dtype):
     torch.testing.assert_close(cb.conv_block(*args), cb.conv_block(*aligned), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1, 3), (2, 19, 21, 8), (1, 6, 130, 160), (3, 2, 5, 80)])
+# and shapes that cross the rolling-row kernel's edges: W and H of 1 and
+# under the window, strips past W (32 columns), a partial last channel slab
+# (C = 80: slabs of 32), several segments (H = 37, 130); C = 7, and C = 4 in
+# bf16, take the scalar kernel
+DW_SHAPES = [(1, 1, 1, 3), (2, 19, 21, 8), (1, 6, 130, 160), (3, 2, 5, 80)] + [
+    (2, h, w, c) for h in (1, 2, 5, 37, 130) for w in (1, 21, 33, 130) for c in (4, 8, 80, 160, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", DW_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("with_vec", [False, True])
-def test_dw_matches_float64(gen, shape, with_vec):
+def test_dw_matches_float64(gen, shape, with_vec, dtype):
+    """Against the float64 plain version on the same (rounded) values: fp32
+    atol 1e-5; bf16 within half a bf16 ulp of the exact value, + 1e-4 for
+    the fp32 sum (a rounding tie may go either way)."""
     c = shape[-1]
-    x = torch.randn(shape, generator=gen, device="cuda")
-    wdw = torch.randn((5, 5, c), generator=gen, device="cuda") * 0.2
-    bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
-    vec = torch.randn((shape[0], c), generator=gen, device="cuda") * 0.2 if with_vec else None
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    wdw = (torch.randn((5, 5, c), generator=gen, device="cuda") * 0.2).to(dtype)
+    bias = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(dtype)
+    vec = (torch.randn((shape[0], c), generator=gen, device="cuda") * 0.2).to(dtype) if with_vec else None
     dw.launches = 0
     out = dw.depthwise_conv5x5(x, wdw, bias, vec)
-    assert dw.launches == 1
+    assert dw.launches == 1 and out.dtype == dtype
     ref = dw.depthwise_conv5x5_reference(
         x.double(), wdw.double(), bias.double(), None if vec is None else vec.double())
-    torch.testing.assert_close(out.double(), ref, atol=1e-5, rtol=0)
+    d = (out.double() - ref).abs()
+    if dtype == torch.float32:
+        assert d.max().item() <= 1e-5
+    else:
+        assert bool((d <= 1e-4 + 2.0**-8 * ref.abs()).all())
+    if shape[1] == 130 and c in (80, 160):
+        plan = dw.dw_plan(shape, dtype)
+        assert plan["kernel"] == "dw5x5_ring_kernel" and plan["segments"] > 1 and plan["slabs"] > 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_dw_vector_and_scalar_paths_agree(gen, dtype):
-    """C % 4 == 0 with aligned pointers takes the vector kernel; the same
-    input 4 bytes off alignment takes the scalar one. Same sums, same order."""
+    """C * itemsize % 16 == 0 with aligned pointers takes the rolling-row
+    kernel; the same input 4 bytes off alignment takes the scalar one. Same
+    sums, same order."""
     shape = (2, 11, 37, 80)
     buf = torch.randn(1 + torch.Size(shape).numel(), generator=gen, device="cuda").to(dtype)
     aligned = buf[:-1].view(shape)
@@ -252,9 +273,11 @@ def test_run_kernels_match_plain(gen, variant, case, c):
     from the thread, not staged). The whole-image adjoint takes its
     shared-memory box wherever a patch's box fits, and the scattered and
     mixed cases reach its branch for a box that does not fit (asserted from
-    its patch plan)."""
+    its patch plan); so does the windowed adjoint (win, winx and winb's),
+    which runs the same patch body in its own kernel and gives the
+    whole-image adjoint's gradient on the same coords."""
     img, coords, fill = _run_case(gen, case, c)
-    if variant == "whole":
+    if ws.ADJOINT[variant] in ("whole", "win"):
         plan = ws.whole_adjoint_patches(coords.reshape(2, -1, 2), coords.shape[-2], img.shape[1:3], c)
         if case in ("scattered", "mixed"):
             assert plan["direct"] > 0
@@ -276,6 +299,9 @@ def test_run_kernels_match_plain(gen, variant, case, c):
         exact, gexact = _per_image(bilinear_sample_mm, img, coords, fill, ct)
         torch.testing.assert_close(out, exact, atol=3e-4, rtol=0)
         assert (grad - gexact).abs().max().item() <= 7e-5 * g_max
+    if ws.ADJOINT[variant] == "win":
+        g_whole = ws.warp_adjoint(ct, coords.reshape(2, -1, 2), img.shape, "whole", coords.shape[-2])
+        assert (grad - g_whole).abs().max().item() <= 1e-5 * g_max
 
 
 @pytest.mark.parametrize("variant", ["win", "winx", "win3", "whole", "winb"])

@@ -1,12 +1,12 @@
 """The port stands alone and defaults to the card.
 
-* No file of ``sinddm_tpu_torch/``, nor ``chip_smoke.py`` or
-  ``guided_check_spread.py``, imports JAX,
+* No file of ``sinddm_tpu_torch/``, nor ``chip_smoke.py``,
+  ``guided_check_spread.py`` or ``kernel_times.py``, imports JAX,
   flax, optax, orbax, the third-party ``regex`` or the JAX package.
 * Every entry point runs on ``cuda`` unless given ``device="cpu"``: on
   this CUDA-less build each raises instead of running on the CPU.
-* ``chip_smoke.py`` and ``guided_check_spread.py`` fail, printing no
-  result, where there is no card.
+* ``chip_smoke.py``, ``guided_check_spread.py`` and ``kernel_times.py``
+  fail, printing no result, where there is no card.
 """
 
 import ast
@@ -32,8 +32,8 @@ from sinddm_tpu_torch.schedules import make_schedules
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "regex", "sinddm_tpu"}
-SOURCES = sorted((ROOT / "sinddm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                ROOT / "guided_check_spread.py"]
+SOURCES = sorted((ROOT / "sinddm_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "guided_check_spread.py", ROOT / "kernel_times.py"]
 
 
 def _imported_roots(path: Path):
@@ -51,7 +51,7 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
-    assert {"chip_smoke.py", "guided_check_spread.py", "sinddm_tpu_torch/ops/conv_block.py", "sinddm_tpu_torch/cli.py",
+    assert {"chip_smoke.py", "guided_check_spread.py", "kernel_times.py", "sinddm_tpu_torch/ops/conv_block.py", "sinddm_tpu_torch/cli.py",
             "sinddm_tpu_torch/apps/sampling.py", "sinddm_tpu_torch/ops/warp.py",
             "sinddm_tpu_torch/ops/warp_sample.py", "sinddm_tpu_torch/models/clip/model.py",
             "sinddm_tpu_torch/models/clip/tokenizer.py", "sinddm_tpu_torch/models/clip/convert.py",
@@ -139,3 +139,10 @@ def test_guided_check_spread_fails_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "[spread]" not in proc.stdout and "needs a CUDA card" in proc.stderr
+
+
+def test_kernel_times_fails_without_a_card():
+    proc = subprocess.run([sys.executable, str(ROOT / "kernel_times.py")], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"dw_conv"' not in proc.stdout and "needs a CUDA card" in proc.stderr
