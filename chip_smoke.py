@@ -28,8 +28,9 @@ each of which exits non-zero when it fails:
    its four bounds (fp32 SIMT, TF32, 3xTF32, bf16) and cuDNN's time for its
    two 3x3 products alone (no single call computes a block); the depthwise
    kernel at C = 3 / 80 / 160, fp32 and bf16; the five warp forwards and
-   the two patch adjoints (whole-image and windowed) also as the kernel
-   alone (their C entry, no wrapper);
+   the three patch adjoints (whole-image, windowed and win3) also as the
+   kernel alone (their C entry, no wrapper), at one launch of the guided
+   path and with all 256 views of a step in one launch;
    print the patch adjoints' plan (patches that sum in the
    shared-memory box or scatter directly, global atomics of each); check
    with torch.profiler that the win3 entry is one launch;
@@ -51,7 +52,18 @@ each of which exits non-zero when it fails:
    186x248 image, batch 16, 100 ascent iterations through the whole-image
    warp kernels (``--warp_impl pallas``), then 3 denoising steps at the finest
    scale. Check shape, values, the score trace and the launch counts; hold
-   one ascent iteration against the plain warp; profile a few iterations.
+   one ascent iteration against the plain warp; profile a few iterations;
+8. training: ``--mode train`` through the CLI at dim=160, batch 32, on a
+   seeded synthetic 248x186 image (the balloons geometry; its rescale
+   losses computed), 40 steps with a milestone every 20 (checkpoints,
+   loss JSON, the EMA's scale-0 samples through kernels 1 and 2, the
+   post-train walk; finite losses and launch counts checked), then a resume
+   with ``--load_milestone -1``; one step against the same step in float64
+   (``step_vs_float64``) at the coarsest and the finest scale over a few
+   seeds, and its control, a step in TF32; the step time and peak memory of
+   every scale; one profiled step at the finest scale. cuDNN's TF32 is on
+   in this phase, PyTorch's default, so the trainer's own scope is what
+   keeps its steps in fp32.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -99,7 +111,17 @@ Tolerances (max |kernel - plain| against the plain version's values):
     same kinks);
   * one guidance iteration with the bf16 vision tower against the fp32 one:
     finite, the loss within 2e-2 relative (bf16 keeps ~3 digits); the
-    gradients' cosine is printed, not bounded.
+    gradients' cosine is printed, not bounded;
+  * one train step, fp32 in the trainer's scope, against float64 (batch 8,
+    dim 160, the same weights and draws): the loss within 1e-5 relative,
+    the largest gradient error within 1e-4 of the largest gradient, and
+    each parameter's change within 1e-2 lr for all but 0.1% of the
+    elements (Adam's first step is about lr times the gradient's sign, so
+    a gradient near zero may move its element by up to 2 lr; the largest
+    error is printed). Over 5 seeds at s = 0 and 4 in one H100 run the
+    worst were 5.4e-7, 2.3e-5 and 6.3e-5, the largest change error 1.79
+    lr; the control, the same step in TF32, read a gradient error of
+    4.6e-4 / 4.3e-4 at s = 0 / 4 (PERF.md).
 """
 
 from __future__ import annotations
@@ -147,6 +169,11 @@ WARP_REPLACES = {  # C entry -> the TPU kernel's pallas_call
 # the JAX package's win3 gradient error through Mosaic on the TPU (max |dg| on max |g|)
 TPU_WIN3_GRAD_ERR = (7.43, 30.4)
 ROI_BOX = (48, 64, 96, 128)  # y x h w: a quarter of the 186x248 image, views of 224x298
+# the train phase: the CLI's default batch, steps to two milestones; one step
+# against float64 at a smaller batch over a few seeds, and its bounds
+TRAIN_BATCH, TRAIN_STEPS = 32, 40
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEEDS = 8, 5
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_SHARE = 1e-5, 1e-4, 1e-3
 
 # Dense peak rates (NVIDIA data sheets): fp32 SIMT, TF32 and bf16 tensor
 # cores in FLOP/s, device memory in B/s.
@@ -270,9 +297,9 @@ def run_kernel(build, entry, img, coords, fill, ct=None):
     """A launcher of one C entry on buffers made here, without the wrapper's
     checks, copies and allocation: the kernel alone. ``entry`` is a forward
     (``whole_fwd``, ``win_fwd``, ``winx_fwd``, ``winb_fwd``, ``win3_fwd``;
-    fill ``fill``) or a patch adjoint, ``whole_bwd`` or ``win_bwd``
-    (cotangent ``ct``, frames as wide as ``coords``' last sample axis). Fails unless a first launch returns
-    success."""
+    fill ``fill``) or a patch adjoint, ``whole_bwd``, ``win_bwd`` or
+    ``win3_bwd`` (cotangent ``ct``, frames as wide as ``coords``' last
+    sample axis). Fails unless a first launch returns success."""
     from sinddm_tpu_torch.ops.warp_sample import adjoint_patch
 
     b, h, w, c = img.shape
@@ -404,6 +431,180 @@ def tensor_core_check(build) -> None:
     bad = [f for f, c in convs.items() if not any(want(f) in form for form in c)]
     if len(convs) < 6 or bad:
         fail(f"conv_block's 3x3 kernels without tensor-core HMMA ({len(convs)} found): {bad}")
+
+
+def train_phase(results) -> dict:
+    """Phase 8: ``--mode train`` through the CLI at full width on a seeded
+    synthetic 248x186 image (the balloons geometry, rescale losses
+    computed), a resume, one step against float64, and the step time and
+    memory of every scale. cuDNN's TF32 is on here, PyTorch's default, so
+    it is the trainer's own scope that keeps its steps in fp32."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from sinddm_tpu_torch import cli
+    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
+    from sinddm_tpu_torch.models.denoiser import SinDDMNet
+    from sinddm_tpu_torch.ops import conv_block as cb, dw_conv as dw
+    from sinddm_tpu_torch.pyramid import build_pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+    from sinddm_tpu_torch.training import trainer as trainer_mod
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer, step_vs_float64
+
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=work)
+    data = Path(tmp.name) / "data"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, BALLOONS_WH[::-1] + (3,), dtype=np.uint8)).save(data / "synthetic.png")
+    out = Path(tmp.name) / "results"
+    argv = ["--mode", "train", "--dataset_folder", str(data), "--image_name", "synthetic.png",
+            "--results_folder", str(out), "--scope", "train", "--dim", str(DIM),
+            "--train_batch_size", str(TRAIN_BATCH), "--save_and_sample_every", str(TRAIN_STEPS // 2),
+            "--avg_window", "10", "--sample_batch_size", str(BATCH)]
+
+    def drive(extra):
+        buf = io.StringIO()
+        cb.launches = dw.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            say(f"[train cli] {line}")
+        losses = [float(m) for m in re.findall(r"^step:\d+ loss:(\S+)", text, re.M)]
+        return wall, text, losses, {"conv_block": cb.launches, "dw_conv": dw.launches}
+
+    folder = out / "train"
+    wall, text, losses, launches = drive(["--train_num_steps", str(TRAIN_STEPS)])
+    pyramid = build_pyramid(str(data / "synthetic.png"))
+    sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=pyramid.n_scales,
+                           device="cuda")
+    sizes_hw = [tuple(hw) for hw in pyramid.sizes_hw]
+    # the kernels ran in the milestones' scale-0 samples and the post-train walk
+    calls = 2 * sched.num_timesteps + sum(sched.num_timesteps_ideal)
+    expect = {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4}
+    ckpt = torch.load(folder / "model-2.pt", map_location="cpu", weights_only=True)
+    say(f"[train] --mode train dim {DIM} batch {TRAIN_BATCH} scales {sizes_hw} {TRAIN_STEPS} steps wall_s "
+        f"{wall:.3f} (milestones, their samples and the post-train walk included) losses {losses} peak_GB "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches {launches}")
+    if sizes_hw != BALLOONS_SIZES_HW:
+        fail(f"the synthetic image's pyramid {sizes_hw} != the balloons geometry {BALLOONS_SIZES_HW}")
+    if len(losses) != TRAIN_STEPS // 10 or not all(np.isfinite(losses)):
+        fail(f"--mode train logged {losses}: not {TRAIN_STEPS // 10} finite window losses")
+    for name in ("model-1.pt", "model-2.pt", "model-2.loss.json", "sample-1.png", "sample-2.png"):
+        if not (folder / name).exists():
+            fail(f"--mode train wrote no {name}")
+    if ckpt["step"] != TRAIN_STEPS or not {"model", "ema", "sched", "opt"} <= set(ckpt):
+        fail(f"model-2.pt holds step {ckpt['step']} and keys {sorted(ckpt)}")
+    if launches != expect:
+        fail(f"--mode train launch counts {launches} != expected {expect}")
+    r_wall, r_text, r_losses, _ = drive(["--train_num_steps", str(TRAIN_STEPS + 10), "--load_milestone", "-1"])
+    say(f"[train resume] --load_milestone -1 to step {TRAIN_STEPS + 10}: wall_s {r_wall:.3f} losses {r_losses}")
+    if f"resumed at step {TRAIN_STEPS}" not in r_text or len(r_losses) != 1 or not np.isfinite(r_losses[0]):
+        fail("--load_milestone -1 did not resume at the last milestone's step")
+    del ckpt
+
+    # one step against float64, at the coarsest and the finest scale; the
+    # bounds hold the spread measured over seeds (PERF.md). Then the
+    # control: the same comparison with the trainer's fp32 scope taken away,
+    # so cuDNN runs the step in TF32; it must break a bound, or the bounds
+    # cannot tell a TF32 step from an fp32 one
+    def check(s, seed):  # a fresh trainer each: its first step, from seeded weights
+        trainer = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid,
+                                    TrainConfig(train_batch_size=TRAIN_CHECK_BATCH), DiffusionConfig(),
+                                    folder / "check", seed=seed, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x_orig = trainer.data_list[s][0]
+        t = torch.randint(0, sched.num_timesteps_trained[s], (TRAIN_CHECK_BATCH,), generator=gen, device="cuda")
+        noise = torch.randn((TRAIN_CHECK_BATCH,) + tuple(x_orig.shape[1:]), generator=gen, device="cuda")
+        e = step_vs_float64(trainer, s, [t], [noise])
+        ok = (e["loss_rel"] <= TRAIN_LOSS_TOL and e["grad_rel"] <= TRAIN_GRAD_TOL
+              and e["change_share"] <= TRAIN_UPDATE_SHARE)
+        return e, ok
+
+    def show(what, s, seed, e, ok):
+        say(f"[check train step {what} vs float64 s={s} {sizes_hw[s]} batch {TRAIN_CHECK_BATCH} seed {seed}] loss "
+            f"rel {e['loss_rel']:.3e} (<= {TRAIN_LOSS_TOL:g}) max|dg|/max|g| {e['grad_rel']:.3e} "
+            f"(<= {TRAIN_GRAD_TOL:g}) param change: max err {e['change_max_lr']:.3e} lr, share over 1e-2 lr "
+            f"{e['change_share']:.3e} (<= {TRAIN_UPDATE_SHARE:g}) {'within' if ok else 'OUT OF'} bounds")
+
+    errors, control = {}, {}
+    for s in (0, pyramid.n_scales - 1):
+        for seed in range(TRAIN_CHECK_SEEDS):
+            e, ok = check(s, seed)
+            show("fp32", s, seed, e, ok)
+            if not ok:
+                fail(f"a train step at s={s} disagrees with float64")
+            errors[s] = {k: max(v, errors.get(s, {}).get(k, 0.0)) for k, v in e.items()}
+        fp32_scope = trainer_mod.fp32_convs
+        trainer_mod.fp32_convs = contextlib.nullcontext  # the control: cuDNN's TF32 left on
+        try:
+            control[s], ok = check(s, 0)
+        finally:
+            trainer_mod.fp32_convs = fp32_scope
+        show("TF32 (control)", s, 0, control[s], ok)
+        if ok:
+            fail(f"a TF32 train step at s={s} passes the fp32 step's bounds: they cannot tell the two apart")
+
+    # the step time of every scale at batch TRAIN_BATCH (CUDA events), its
+    # peak memory, and one profiled step at the finest scale
+    trainer = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid,
+                                TrainConfig(train_batch_size=TRAIN_BATCH), DiffusionConfig(), folder / "time",
+                                seed=0, device="cuda")
+    step_ms, peak_gb = {}, {}
+    for s in range(pyramid.n_scales):
+        trainer.train_step(s=s)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[s] = time_ms(lambda: trainer.train_step(s=s), reps=5, warm=1)
+        peak_gb[s] = torch.cuda.max_memory_allocated() / 1e9
+        h, w = sizes_hw[s]
+        flops = 3 * TRAIN_BATCH * sum(block_work(1, h, w, c, co, 4)[0] for _, c, co in BLOCKS)
+        say(f"[time train step s={s} {h}x{w} batch {TRAIN_BATCH} fp32, TF32 off] ms {step_ms[s]:.2f} peak_GB "
+            f"{peak_gb[s]:.2f} conv TFLOP {flops / 1e12:.3f} (3x the forward's blocks) TFLOP/s "
+            f"{flops / step_ms[s] / 1e9:.2f}")
+    mean_ms = sum(step_ms.values()) / len(step_ms)
+    say(f"[time train step] mean over the uniform scale draw {mean_ms:.2f} ms")
+    groups = profile_train_step(lambda: trainer.train_step(s=pyramid.n_scales - 1))
+    tmp.cleanup()
+    return {"wall_s": wall, "losses": losses, "resume_wall_s": r_wall, "step_ms": step_ms, "mean_step_ms": mean_ms,
+            "peak_GB": peak_gb, "vs_float64": errors, "tf32_control_vs_float64": control,
+            "finest_step_profile_ms": groups}
+
+
+def profile_train_step(run):
+    """Device time of one train step by kernel (torch.profiler), grouped:
+    cuDNN's convolutions (with their FFT and layout kernels) and cuBLAS's
+    products, forward and backward; the rest."""
+    prof = profile_walk(run)
+    if prof is None:
+        say("[profile train] torch.profiler recorded no device activity: breakdown not measured")
+        return None
+    by_name, busy, window = prof
+    say(f"[profile train] one step at the finest scale: device busy_ms {busy / 1e3:.1f} kernel-window_ms "
+        f"{window / 1e3:.1f} idle_share {1 - busy / window:.4f} kernels {sum(n for _, n in by_name.values())}")
+    groups = collections.Counter()
+    for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        low = kname.lower()
+        g = ("convolutions and matrix products (cuDNN, cuBLAS)"
+             if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "winograd", "dgrad", "wgrad", "fprop",
+                                       "cutlass", "sm90", "gemm", "nvjet", "fft", "complex"))
+             else "elementwise, reductions, Adam")
+        groups[g] += us / 1e3
+    for kname, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        say(f"[profile train] {us / busy:7.2%} {us / 1e3:10.2f} ms {n:5d}x {kname[:110]}")
+    for g, ms in groups.items():
+        say(f"[profile train] group {g}: {ms:.2f} ms ({ms * 1e3 / busy:.2%})")
+    return dict(groups) | {"busy_ms": busy / 1e3, "idle_share": 1 - busy / window}
 
 
 def main() -> None:
@@ -543,7 +744,8 @@ def main() -> None:
     for case, img, coords, fill in warp_cases:
         coords3 = coords.reshape(img.shape[0], -1, 2)
         plan = ws.whole_adjoint_patches(coords3, coords.shape[-2], img.shape[1:3], 3)
-        say(f"[plan warp whole_bwd {case}] {patch_plan(plan)}")
+        for entry in ("whole_bwd", "win3_bwd"):  # one patch body: the same patches, boxes and branches
+            say(f"[plan warp {entry} {case}] {patch_plan(plan)}")
         if case == "mixed" and not (plan["shared"] and plan["direct"]):
             fail(f"the mixed case does not reach both branches of the whole-image adjoint: {plan}")
         ct = torch.randn(coords.shape[:-1] + (3,), generator=gen, device="cuda")
@@ -667,37 +869,35 @@ def main() -> None:
         plain_b = time_ms(lambda: torch.autograd.grad(plain_out, x_plain, ct, retain_graph=True), reps=2, warm=1)
         coords3 = coords.reshape(BATCH, -1, 2)
         timed = [(f"{v}_fwd", (lambda fn=fn: fn(warp_img, coords, 1.0)), plain_f, lib_f) for v, fn in ws.FORWARDS.items()]
-        timed += [(f"{a}_bwd", (lambda a=a: ws.warp_adjoint(ct, coords3, warp_img.shape, a, frame[1])), plain_b,
-                   lib_b) for a in ("whole", "win")]
-        if n_views == VIEW_CHUNK:  # win3 beside its own plain version, at one launch of the path
-            x_s3 = warp_img.clone().requires_grad_(True)
-            out_s3 = plain_warp(x_s3, coords, 1.0, ws.bilinear_sample_split3)
-            with torch.no_grad():
-                plain3_f = time_ms(lambda: plain_warp(warp_img, coords, 1.0, ws.bilinear_sample_split3), reps=2, warm=1)
-            plain3_b = time_ms(lambda: torch.autograd.grad(out_s3, x_s3, ct, retain_graph=True), reps=2, warm=1)
-            del x_s3, out_s3
-            timed += [("win3_fwd", lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0), plain3_f, lib_f),
-                      ("win3_bwd", lambda: ws.warp_adjoint(ct, coords3, warp_img.shape, "win3"), plain3_b, lib_b)]
+        # win3 beside its own plain version; its adjoint beside the other two
+        # patch adjoints (kernels 4 and 6), at one launch of the path and at 256 views
+        x_s3 = warp_img.clone().requires_grad_(True)
+        out_s3 = plain_warp(x_s3, coords, 1.0, ws.bilinear_sample_split3)
+        with torch.no_grad():
+            plain3_f = time_ms(lambda: plain_warp(warp_img, coords, 1.0, ws.bilinear_sample_split3), reps=2, warm=1)
+        plain3_b = time_ms(lambda: torch.autograd.grad(out_s3, x_s3, ct, retain_graph=True), reps=2, warm=1)
+        del x_s3, out_s3
+        timed.append(("win3_fwd", lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0), plain3_f, lib_f))
+        timed += [(f"{a}_bwd", (lambda a=a: ws.warp_adjoint(ct, coords3, warp_img.shape, a, frame[1])),
+                   plain3_b if a == "win3" else plain_b, lib_b) for a in ("whole", "win", "win3")]
         for entry, run, p_ms, l_ms in timed:
             with torch.no_grad():
                 k_ms = time_ms(run, reps=20)
             flops, nbytes = warp_work(BATCH, n_px, h_fin, w_fin, 3, adjoint=entry.endswith("_bwd"),
                                       split3=entry.startswith("win3"))
             b_ms, b_by = bound(flops, nbytes, peaks["fp32"], peaks["mem"])
-            alone = ""
-            if entry in ("whole_bwd", "win_bwd") or entry.endswith("_fwd"):
-                alone_ms = time_ms(run_kernel(_build, entry, warp_img, coords, 1.0, ct), reps=20)  # its C entry
-                alone = f"kernel_alone_ms {alone_ms:.4f} "
-            say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} {alone}plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
-                f"MFLOP {flops / 1e6:.1f} MB {nbytes / 1e6:.1f} bound_ms {b_ms:.4f} ({b_by}) share of the bound "
+            alone_ms = time_ms(run_kernel(_build, entry, warp_img, coords, 1.0, ct), reps=20)  # its C entry
+            say(f"[time warp {entry} {shape}] kernel_ms {k_ms:.4f} kernel_alone_ms {alone_ms:.4f} plain_ms {p_ms:.4f} "
+                f"library_ms {l_ms:.4f} MFLOP {flops / 1e6:.1f} MB {nbytes / 1e6:.1f} bound_ms {b_ms:.4f} ({b_by}) share of the bound "
                 f"{b_ms / k_ms:.3f} GB/s {nbytes / k_ms / 1e6:.1f}")
+            record = dict(ms=k_ms, kernel_alone_ms=alone_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                          bound_by=b_by, shape=shape)
             if n_views == VIEW_CHUNK:
-                results["warp"][entry] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                                              bound_by=b_by, shape=shape)
-                if alone:
-                    results["warp"][entry]["kernel_alone_ms"] = alone_ms
+                results["warp"][entry] = record
+            elif entry.endswith("_bwd"):
+                results.setdefault("warp_256_views", {})[entry] = {k: record[k] for k in ("ms", "kernel_alone_ms")}
         plan = ws.whole_adjoint_patches(coords3, frame[1], (h_fin, w_fin), 3)
-        for entry in ("whole_bwd", "win_bwd"):  # one patch body, one plan
+        for entry in ("whole_bwd", "win_bwd", "win3_bwd"):  # one patch body, one plan
             say(f"[plan warp {entry} {shape}] {patch_plan(plan)}")
         if n_views == VIEW_CHUNK:  # the win3 entry is one launch: the split happens in the kernel
             prof = profile_walk(lambda: ws.bilinear_sample_pallas_win3(warp_img, coords, 1.0))
@@ -1020,7 +1220,12 @@ def main() -> None:
         lambda: _clip_roi_ascent(roi_ex, patch, text_lr, 3, ROI_STRENGTH))
     del patch, roi_k, roi_p
 
-    # ---- 8. records -----------------------------------------------------------
+    # ---- 8. training -----------------------------------------------------------
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the trainer's own scope keeps its steps fp32
+    results["train"] = train_phase(results)
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 9. records -----------------------------------------------------------
     replaces = {
         "conv_block": "sinddm_tpu/ops/pallas_conv.py:234",
         "dw_conv": "sinddm_tpu/ops/pallas_dw.py:93",
@@ -1043,7 +1248,7 @@ def main() -> None:
             "replaces": where, "launches": g_launches[entry],
             "max_abs_err": results["warp_err"][entry], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], **({"kernel_alone_ms": r["kernel_alone_ms"]} if "kernel_alone_ms" in r else {}),
+            "shape": r["shape"], "kernel_alone_ms": r["kernel_alone_ms"],
         })
     # the paths' record: walk times, device time by group a guided step or an
     # ascent iteration (ms), and the reduced-precision findings
@@ -1053,6 +1258,7 @@ def main() -> None:
         "guided_step_fp32": results["guided_step"], "guided_step_bf16": results["bf16_step"],
         "clip_roi_iteration": results["roi_iteration"], "bf16_tower_vs_fp32": results["bf16_tower"],
         "win3_vs_exact": results["win3_vs_exact"], "win3_iteration_vs_exact": results["win3_iteration"],
+        "warp_adjoints_256_views": results["warp_256_views"], "train": results["train"],
     }))
     say(f"[done] total_s {time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))

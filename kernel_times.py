@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's depthwise kernel and its two patch-adjoint warp kernels
-on one NVIDIA card, through their public wrappers.
+"""Time the port's depthwise kernel and its three warp adjoint kernels on
+one NVIDIA card, through their public wrappers.
 
     python3 kernel_times.py [--root CHECKOUT] [--reps N]
 
@@ -21,8 +21,8 @@ host's launch gaps where a call is shorter than its launch), and
   scales from 48x64 to 186x248 with C = 3 / 80 / 160 and the conv block's
   per-batch vector, fp32 and bf16, beside its bytes bound (each input read
   once, the output written once, at the card's memory rate);
-* ``warp_adjoint`` with the ``win`` and the ``whole`` kernel at the guided
-  path's launch (16 images 186x248x3, 8 views of 224x298 an image, views
+* ``warp_adjoint`` with the ``win``, the ``whole`` and the ``win3`` kernel
+  (kernels 6, 4 and 10) at the guided path's launch (16 images 186x248x3, 8 views of 224x298 an image, views
   drawn and warped as the guidance draws them) and with all 16 views of a
   step in one launch.
 
@@ -122,7 +122,7 @@ def main() -> None:
         m = ce.view_matrices(draws.views(0, n_views), range(n_views), HW, frame)
         coords3 = wp.homography_coords(m, frame).reshape(BATCH, -1, 2)
         ct = torch.randn(coords3.shape[:-1] + (3,), generator=gen, device="cuda")
-        for variant in ("win", "whole"):
+        for variant in ("win", "whole", "win3"):
             call = lambda: ws.warp_adjoint(ct, coords3, img_shape, variant, frame[1])  # noqa: E731
             ms, dev = time_ms(call, args.reps), device_ms(call, args.reps)
             key = f"{variant} {n_views} views"

@@ -66,8 +66,8 @@
 // bound them, so the whole-image adjoint and the windowed one (which
 // computes the same function) run one patch body (patch_bwd) in their own
 // kernels: a block takes a 2-D patch of a view and sums the patch's terms in
-// a shared-memory box before one coalesced global atomic an element. The
-// win3 adjoint still runs a thread a sample-channel.
+// a shared-memory box before one coalesced global atomic an element; the
+// win3 adjoint runs the same body with its split products as the terms.
 //
 // C interface, loaded with ctypes: every entry returns the cudaError_t of
 // its launch (0 on success) and never synchronises.
@@ -76,8 +76,6 @@
 #include "common.cuh"
 
 namespace sinddm {
-
-constexpr int kWarpThreads = 256;
 
 // The two taps of one hat row along an axis of n samples: indices clamped
 // into the axis (safe to read), weights zero where the tap falls outside it.
@@ -361,42 +359,14 @@ warp_win3_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ c
   run_fwd<kC, Order::kSplit3>(img, coords, out, fill, H, W, C, N, runs);
 }
 
-// Adjoint of win3: gimg[b, y, x, c] += split3(A[q, y] * ct[b, q, c]) x split3(B[q, x]),
-// the row factor formed in fp32 first and then split, as the TPU kernel's
-// _dotg3(A * ct, B). One thread per (b, q, c), up to four atomics; gimg is
-// zeroed by the caller.
-__global__ void __launch_bounds__(kWarpThreads)
-warp_win3_bwd_kernel(const float* __restrict__ ct, const float* __restrict__ coords,
-                     float* __restrict__ gimg, int B, int H, int W, int C, int N) {
-  const long long i = (long long)blockIdx.x * kWarpThreads + threadIdx.x;
-  if (i >= (long long)B * N * C) return;
-  const int c = (int)(i % C);
-  const long long p = i / C;
-  const int b = (int)(p / N);
-  const Taps tx = hat_taps_tpu(coords[2 * p], W);
-  const Taps ty = hat_taps_tpu(coords[2 * p + 1], H);
-  const float g = ct[i];
-  float* im = gimg + (size_t)b * H * W * C + c;
-  const Split b0 = split_bf16(tx.w0), b1 = split_bf16(tx.w1);
-  const float wy[2] = {ty.w0, ty.w1};
-  const int ys[2] = {ty.i0, ty.i1};
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (wy[j] == 0.f) continue;
-    const Split gy = split_bf16(wy[j] * g);
-    float* row = im + (size_t)ys[j] * W * C;
-    if (tx.w0 != 0.f) atomicAdd(row + (size_t)tx.i0 * C, mul3(gy, b0));
-    if (tx.w1 != 0.f) atomicAdd(row + (size_t)tx.i1 * C, mul3(gy, b1));
-  }
-}
-
-// ---- the adjoints of the exact warp: a 2-D patch of a view a block ----------
+// ---- the adjoints: a 2-D patch of a view a block ----------------------------
 //
 // gimg[b, y, x, c] = sum_q A[q, y] ct[b, q, c] B[q, x] over the N samples of
 // image b, replacing _bwd_kernel (sinddm_tpu/ops/pallas_warp.py, the
 // bilinear_sample_pallas adjoint) and _bwd_kernel_win (the adjoint win,
 // winx and winb share; pallas_warp.py's windowed kernels give "Identical
-// results" to the whole-image ones). The samples are frames FW columns wide,
+// results" to the whole-image ones), and, with each term formed from split
+// bf16 parts (Split3Terms), _bwd_kernel_win3. The samples are frames FW columns wide,
 // row after row (the views' rows one after another; flat coords are one row
 // of N). What bounds it on the card is the atomics: each sample adds up to
 // 4 x C terms, and a view magnifies its crop, so neighbouring samples share
@@ -462,10 +432,33 @@ struct ExactTerms {
   }
 };
 
+// The terms of win3's adjoint, as the TPU kernel's _dotg3(A * ct, B): the hat
+// weights of hat_taps_tpu, the row factor ty.w_j * g formed in fp32 and then
+// split, the column weight split the same way, and each term
+// mul3(split(ty.w_j * g), split(tx.w_i)), three bf16 x bf16 products (each
+// exact in fp32) with fp32 sums.
+struct Split3Terms {
+  static __device__ __forceinline__ Taps taps(float v, int n) { return hat_taps_tpu(v, n); }
+  static __device__ __forceinline__ void scatter(float* dst, int row0, int row1, int col0, int col1,
+                                                 const Taps& ty, const Taps& tx, float g) {
+    const Split b0 = split_bf16(tx.w0), b1 = split_bf16(tx.w1);
+    if (ty.w0 != 0.f) {
+      const Split g0 = split_bf16(ty.w0 * g);
+      if (tx.w0 != 0.f) atomicAdd(dst + row0 + col0, mul3(g0, b0));
+      if (tx.w1 != 0.f) atomicAdd(dst + row0 + col1, mul3(g0, b1));
+    }
+    if (ty.w1 != 0.f) {
+      const Split g1 = split_bf16(ty.w1 * g);
+      if (tx.w0 != 0.f) atomicAdd(dst + row1 + col0, mul3(g1, b0));
+      if (tx.w1 != 0.f) atomicAdd(dst + row1 + col1, mul3(g1, b1));
+    }
+  }
+};
+
 // ct [B, N, C], coords [B, N] (x, y), gimg [B, H, W, C] zeroed by the caller;
 // block b * tiles + t takes patch t (row-major over col_tiles patches a row
 // of patches) of image b. kC = 3 is the path's, its cotangent loaded before
-// the box is known; kC = 0 takes C at run time. The body of both adjoint
+// the box is known; kC = 0 takes C at run time. The body of the three adjoint
 // kernels below.
 template <int kC, class Terms>
 __device__ __forceinline__ void patch_bwd(const float* __restrict__ ct, const float2* __restrict__ coords,
@@ -589,7 +582,17 @@ warp_win_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ coo
   patch_bwd<kC, ExactTerms>(ct, coords, gimg, H, W, C, N, FW, pw_log2, col_tiles, tiles);
 }
 
-inline int blocks_for(long long n) { return (int)((n + kWarpThreads - 1) / kWarpThreads); }
+// Replaces _bwd_kernel_win3, the adjoint of win3: its split terms sum in the
+// shared box before the global adds, as the exact ones do above. A term is
+// mul3 of the split factors whatever the order, so the gradient differs from
+// a term-by-term scatter only in the order in which terms meet.
+template <int kC>
+__global__ void __launch_bounds__(kPatchThreads, 4)
+warp_win3_bwd_kernel(const float* __restrict__ ct, const float2* __restrict__ coords,
+                     float* __restrict__ gimg, int H, int W, int C, int N, int FW, int pw_log2,
+                     int col_tiles, int tiles) {
+  patch_bwd<kC, Split3Terms>(ct, coords, gimg, H, W, C, N, FW, pw_log2, col_tiles, tiles);
+}
 
 // A forward kernel on the run skeleton: its kC = 3 or its kC = 0 instantiation.
 using RunFwdKernel = void (*)(const float*, const float2*, float*, float, int, int, int, int, int);
@@ -692,19 +695,11 @@ int sinddm_warp_win3_fwd(const void* img, const void* coords, void* out, float f
                                 coords, out, fill, B, H, W, C, N, device, stream);
 }
 
-// ct [B,N,C], coords [B,N,2] -> gimg [B,H,W,C], zeroed here first.
-int sinddm_warp_win3_bwd(const void* ct, const void* coords, void* gimg, int B, int H, int W,
-                         int C, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(gimg, 0, (size_t)B * H * W * C * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  sinddm::warp_win3_bwd_kernel<<<sinddm::blocks_for((long long)B * N * C), sinddm::kWarpThreads,
-                                 0, s>>>(static_cast<const float*>(ct),
-                                         static_cast<const float*>(coords),
-                                         static_cast<float*>(gimg), B, H, W, C, N);
-  return (int)cudaGetLastError();
+// As sinddm_warp_whole_bwd, with win3's split terms.
+int sinddm_warp_win3_bwd(const void* ct, const void* coords, void* gimg, int B, int H, int W, int C,
+                         int N, int frame_w, int patch_w, int device, void* stream) {
+  return sinddm::launch_patch_bwd(&sinddm::warp_win3_bwd_kernel<3>, &sinddm::warp_win3_bwd_kernel<0>, ct,
+                                  coords, gimg, B, H, W, C, N, frame_w, patch_w, device, stream);
 }
 
 const char* sinddm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

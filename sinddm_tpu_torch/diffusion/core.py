@@ -1,4 +1,4 @@
-"""Multi-scale Gaussian diffusion, sampling side (port of ``sinddm_tpu/diffusion/core.py``).
+"""Multi-scale Gaussian diffusion: sampling and training losses (port of ``sinddm_tpu/diffusion/core.py``).
 
 Pure functions over a :class:`~sinddm_tpu_torch.schedules.Schedules`, a
 ``model_fn(x, t_vec, s) -> eps`` and a source of noise. The JAX package's
@@ -12,8 +12,9 @@ Shapes are NHWC. ``s`` (the scale index) and the step's ``t`` are Python
 ints. A guidance hook ``guidance_fn(x_recon, x_t, t, s, carry) -> (x_recon,
 carry, aux)`` edits the predicted clean image of each step (CLIP guidance);
 its carry is threaded through the loop and its aux collected per step. The
-hook draws its own random numbers (the JAX package hands it a key). The
-training losses arrive with their slice.
+hook draws its own random numbers (the JAX package hands it a key).
+:func:`training_loss` draws its timesteps and noise from a generator, or
+takes them injected, and :func:`p_losses` computes the loss they give.
 """
 
 from __future__ import annotations
@@ -268,3 +269,86 @@ def sample_via_scale(
         guidance_fn=guidance_fn, guidance_carry=guidance_carry,
         collect_interm=collect_interm,
     )
+
+
+def p_losses(
+    model_fn: ModelFn,
+    sched: Schedules,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    *,
+    s: int,
+    x_orig: Optional[torch.Tensor] = None,
+    loss_type: str = "l1",
+    valid_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Training loss of one batch at timesteps ``t`` [B] with ``noise``.
+
+    At s > 0, ``x_start`` is the blurry upsampled (recon) image and
+    ``x_orig`` the true scale-s image; the target mix is ``gamma_t *
+    x_start + (1 - gamma_t) * x_orig`` with the *unclamped* gamma row. At
+    s = 0 it is plain DDPM on ``x_start``. ``valid_mask`` (broadcastable to
+    the output) restricts the mean to the pixels where it is 1.
+    ``l1_pred_img`` compares the prediction with the mix at t - 1, or with
+    ``x_orig`` when the batch's first timestep is 0 (the reference tests
+    t[0] only)."""
+    if s > 0:
+        g = extract(sched.gammas_row(s), t)
+        x_mix = g * x_start + (1.0 - g) * x_orig
+    else:
+        x_mix = x_start
+    x_noisy = q_sample(sched, x_mix, t, noise)
+    s_vec = torch.full((t.shape[0],), float(s), dtype=torch.float32, device=t.device)
+    x_recon = model_fn(x_noisy, t, s_vec)
+
+    def mean(err):
+        if valid_mask is None:
+            return err.mean()
+        w = torch.broadcast_to(valid_mask, err.shape).to(err.dtype)
+        return (err * w).sum() / w.sum()
+
+    if loss_type == "l1":
+        return mean((noise - x_recon).abs())
+    if loss_type == "l2":
+        return mean((noise - x_recon) ** 2)
+    if loss_type == "l1_pred_img":
+        if s > 0:
+            g_prev = extract(sched.gammas_row(s), torch.clamp(t - 1, min=0))
+            mix_prev = g_prev * x_start + (1.0 - g_prev) * x_orig
+            # a tensor test, not a Python one: no device-to-host sync
+            x_mix_prev = torch.where(t[0] > 0, mix_prev, torch.broadcast_to(x_orig, mix_prev.shape))
+        else:
+            x_mix_prev = torch.broadcast_to(x_start, x_recon.shape)
+        return mean((x_mix_prev - x_recon).abs())
+    raise NotImplementedError(loss_type)
+
+
+def training_loss(
+    model_fn: ModelFn,
+    sched: Schedules,
+    x_orig: torch.Tensor,
+    x_blurry: torch.Tensor,
+    *,
+    s: int,
+    batch_size: int,
+    loss_type: str = "l1",
+    valid_mask: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Draw t ~ U[0, num_timesteps_trained[s]) and the noise (in that order,
+    from ``generator``), or take them injected, then compute
+    :func:`p_losses`. ``x_orig`` / ``x_blurry`` may be [1, H, W, C] and
+    broadcast over the batch."""
+    device = x_orig.device
+    if t is None:
+        t = torch.randint(0, sched.num_timesteps_trained[s], (batch_size,), generator=generator, device=device)
+    if noise is None:
+        noise = torch.randn((batch_size,) + tuple(x_orig.shape[1:]), generator=generator, device=device,
+                            dtype=x_orig.dtype)
+    if s > 0:
+        return p_losses(model_fn, sched, x_blurry, t, noise, s=s, x_orig=x_orig, loss_type=loss_type,
+                        valid_mask=valid_mask)
+    return p_losses(model_fn, sched, x_orig, t, noise, s=s, loss_type=loss_type, valid_mask=valid_mask)

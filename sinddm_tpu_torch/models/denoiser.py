@@ -132,7 +132,8 @@ class SinDDMNet(nn.Module):
 
     def run(self, x, time, scale, block_fn) -> torch.Tensor:
         """The forward pass with every conv block computed by ``block_fn``
-        (:func:`conv_block`, or its plain version to compare against)."""
+        (:func:`conv_block`, its plain version to compare against, or
+        :func:`~sinddm_tpu_torch.ops.conv_block.conv_block_train` to train)."""
         in_dtype = x.dtype
         dt = self.compute_dtype
         cond = compute_cond_vec(self, time, scale)

@@ -51,7 +51,7 @@ SIGNATURES = {
         "sinddm_warp_winb_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
         "sinddm_warp_win_bwd": [_P] * 3 + [_I] * 8 + [_P],
         "sinddm_warp_win3_fwd": [_P] * 3 + [_F] + [_I] * 6 + [_P],
-        "sinddm_warp_win3_bwd": [_P] * 3 + [_I] * 6 + [_P],
+        "sinddm_warp_win3_bwd": [_P] * 3 + [_I] * 8 + [_P],
     },
 }
 

@@ -15,6 +15,12 @@ and bf16 ``mma.sync`` in bfloat16 (counted here; see the note in that
 file). On a CPU tensor it runs :func:`conv_block_reference`. Layout is
 NHWC for activations and HWIO for weights, the JAX package's, so the
 kernels read the weights as they are.
+
+:func:`conv_block_train` is the block as the JAX package trains it (flax
+``nn.Conv`` under autograd): the same function in PyTorch's convolutions,
+differentiable, in the input's type. The kernels have no backward, and the
+JAX package's kernel has none either (``ops/pallas_conv.py`` defines no
+``custom_vjp``), so training runs this block.
 """
 
 from __future__ import annotations
@@ -25,11 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from sinddm_tpu_torch.ops import _build
-from sinddm_tpu_torch.ops.dw_conv import (
-    KERNEL_DTYPES,
-    depthwise_conv5x5,
-    depthwise_conv5x5_reference,
-)
+from sinddm_tpu_torch.ops.dw_conv import KERNEL_DTYPES, depthwise_conv5x5
 
 LAUNCHES_PER_BLOCK = 2  # conv1+bias+GELU, conv2+bias+residual (dw_conv adds one more)
 launches = 0  # kernel launches made by conv_block; reset by the caller
@@ -40,6 +42,30 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd) -> torch.Tensor:
+    """The block's stages as ``F.conv2d`` calls in x's type (the depthwise
+    5x5 with ``groups = C``), the depthwise and GELU stages' outputs passed
+    through ``rnd`` before the next product."""
+    c = x.shape[-1]
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels-last)
+    h = rnd(F.conv2d(xc, wdw.permute(2, 0, 1)[:, None], bdw, padding=2, groups=c) + cond[:, :, None, None])
+    h = rnd(gelu(F.conv2d(h, w1.permute(3, 2, 0, 1), b1, padding=1)))
+    h = F.conv2d(h, w2.permute(3, 2, 0, 1), b2, padding=1)
+    res = xc if wres is None else F.conv2d(xc, wres.t()[:, :, None, None], bres)
+    return (h + res).permute(0, 2, 3, 1)
+
+
+def conv_block_train(
+    x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres
+) -> torch.Tensor:
+    """The block with :func:`conv_block`'s signature under autograd, every
+    stage in x's type (float32 to train; float64 as the oracle) with no
+    rounding in between. On a CUDA tensor these are cuDNN's convolutions,
+    in TF32 where the caller lets cuDNN take it
+    (``torch.backends.cudnn.allow_tf32``)."""
+    return _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd=lambda t: t)
+
+
 def conv_block_reference(
     x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres
 ) -> torch.Tensor:
@@ -47,20 +73,14 @@ def conv_block_reference(
 
     Weights are rounded to the input type and every product is taken in
     float32, as the kernels do; in bf16 the intermediates h1 and g are
-    rounded to bf16 before the next product, as the TPU kernel does.
+    rounded to bf16 before the next product, as the TPU kernel does. In
+    float32 this is :func:`conv_block_train`.
     """
     dt = x.dtype
-    f = lambda t: t.to(dt).float()  # noqa: E731
-    h = depthwise_conv5x5_reference(x, wdw, bdw, cond).float().permute(0, 3, 1, 2)
-    h = F.conv2d(h, f(w1).permute(3, 2, 0, 1), f(b1), padding=1)
-    h = gelu(h).to(dt).float()
-    h = F.conv2d(h, f(w2).permute(3, 2, 0, 1), f(b2), padding=1)
-    xc = x.float().permute(0, 3, 1, 2)
-    if wres is None:
-        res = xc
-    else:
-        res = F.conv2d(xc, f(wres).t()[:, :, None, None], f(bres))
-    return (h + res).permute(0, 2, 3, 1).to(dt).contiguous()
+    f = lambda t: None if t is None else t.to(dt).float()  # noqa: E731
+    out = _block(x.float(), f(cond), f(wdw), f(bdw), f(w1), f(b1), f(w2), f(b2), f(wres), f(bres),
+                 rnd=lambda t: t.to(dt).float())
+    return out.to(dt).contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

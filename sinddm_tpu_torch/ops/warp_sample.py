@@ -31,15 +31,16 @@ adjoint sums over every view of an image. The TPU kernels' limits (H <= 256,
 
 Every forward runs a block on a run of consecutive samples of one image, a
 thread on several samples with their channels; it loads coords as
-``float2``, so they are handed over 8-byte aligned. The whole-image adjoint
-and the windowed one (``win``, ``winx`` and ``winb``'s) run one body in two
+``float2``, so they are handed over 8-byte aligned. The three adjoints
+(the whole-image one, the windowed one of ``win``, ``winx`` and ``winb``,
+and ``win3``'s, whose terms are split products) run one body in three
 kernels: a block on a 2-D patch of a view (the frame width is the last
 sample axis of ``coords``; flat coords are one row) sums the patch's terms
 in a shared-memory box over the source pixels they touch and adds the box
 to the gradient with one coalesced atomic an element, or, where the box
 does not fit (coords scattered over the source), adds each term to the
-gradient directly (:func:`whole_adjoint_patches` reckons which, for
-either). The ``win3`` adjoint runs a thread a sample-channel.
+gradient directly (:func:`whole_adjoint_patches` reckons which, for any
+of them).
 
 On a CPU tensor each entry runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The adjoints accumulate with ``atomicAdd``, so
@@ -61,7 +62,7 @@ launches = {
 }
 # the adjoint kernel of each forward
 ADJOINT = {"whole": "whole", "win": "win", "winx": "win", "winb": "win", "win3": "win3"}
-# samples a block of the patch adjoints (whole and win), and the floats its
+# samples a block of the patch adjoints (whole, win, win3), and the floats its
 # shared-memory box holds (csrc/warp_sample.cu kPatch, kBoxFloats)
 PATCH, BOX_FLOATS = 1024, 8192
 
@@ -245,27 +246,23 @@ def warp_adjoint(ct: torch.Tensor, coords3: torch.Tensor, img_shape, variant: st
     """Image gradient [B, H, W, C] of the warp for cotangent ``ct`` [B, N, C]
     at ``coords3`` [B, N, 2], summed over all N samples of each image, by the
     adjoint kernel ``variant`` (``whole``, ``win`` or ``win3``). The kernel
-    zeroes the gradient and scatters into it with ``atomicAdd``. ``whole``
-    and ``win`` take the samples as frames ``frame_w`` wide (it must divide
-    N; None: one row of N) and work on 2-D patches of them."""
+    zeroes the gradient and scatters into it with ``atomicAdd``. It takes
+    the samples as frames ``frame_w`` wide (it must divide N; None: one row
+    of N) and works on 2-D patches of them."""
     b, h, w, c = img_shape
     n = coords3.shape[1]
     frame_w = max(n, 1) if frame_w is None else frame_w
-    patches = variant in ("whole", "win")
-    if patches and (frame_w <= 0 or n % frame_w):
+    if frame_w <= 0 or n % frame_w:
         raise ValueError(f"frame width {frame_w} does not divide the {n} samples an image")
     if not ct.is_cuda:
         raise ValueError("warp_adjoint launches a kernel: it takes CUDA tensors")
     ct = ct.reshape(b, n, c).to(torch.float32).contiguous()
-    if patches:
-        coords3, extra = _float2(coords3), (frame_w, adjoint_patch(n, frame_w)[1])
-    else:
-        coords3, extra = coords3.contiguous(), ()
+    coords3 = _float2(coords3)
     gimg = torch.empty((b, h, w, c), dtype=torch.float32, device=ct.device)
     lib = _build.library("warp_sample")
     err = getattr(lib, f"sinddm_warp_{variant}_bwd")(
-        ct.data_ptr(), coords3.data_ptr(), gimg.data_ptr(), b, h, w, c, n, *extra,
-        ct.device.index or 0, torch.cuda.current_stream(ct.device).cuda_stream,
+        ct.data_ptr(), coords3.data_ptr(), gimg.data_ptr(), b, h, w, c, n, frame_w,
+        adjoint_patch(n, frame_w)[1], ct.device.index or 0, torch.cuda.current_stream(ct.device).cuda_stream,
     )
     _build.check(lib, err, f"bilinear_sample_pallas_{variant} adjoint")
     launches[f"{variant}_bwd"] += 1

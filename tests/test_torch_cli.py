@@ -91,3 +91,65 @@ def test_configs_keep_the_jax_defaults():
 
     for name in ("DiffusionConfig", "SampleConfig"):
         assert dataclasses.asdict(getattr(config, name)()) == dataclasses.asdict(getattr(jax_config, name)())
+
+
+def test_train_flags_keep_the_jax_defaults():
+    """The training flags are the JAX CLI's, with its defaults; the flags
+    that fuse steps into one XLA call and the mesh flags are not taken."""
+    ours = vars(cli.build_parser().parse_args(["--mode", "train"]))
+    theirs = vars(jax_build_parser().parse_args(["--mode", "train"]))
+    train = {"train_batch_size", "grad_accumulate", "train_num_steps", "save_and_sample_every", "avg_window",
+             "train_lr", "sched_k_milestones", "load_milestone", "loss_factor", "load_reference_ckpt"}
+    assert train <= set(ours) and {k: ours[k] for k in train} == {k: theirs[k] for k in train}
+    assert not {"steps_per_chunk", "fused_mode", "mesh_data", "mesh_spatial", "coordinator"} & set(ours)
+
+
+def test_train_mode_writes_checkpoints_and_resumes(dataset, tmp_path, capsys):
+    """--mode train on the CPU (dim 8, 4 steps, a milestone every 2): the
+    reference-layout checkpoints, the loss JSON, the EMA's scale-0 samples
+    and the post-train walk; --load_milestone -1 resumes at step 4 and
+    trains on to 6."""
+    import json
+
+    argv = [
+        "--mode", "train", "--device", "cpu", "--dataset_folder", str(dataset), "--image_name", "tiny.png",
+        "--results_folder", str(tmp_path), "--scope", "tiny", "--dim", "8", "--timesteps", "10",
+        "--train_batch_size", "2", "--save_and_sample_every", "2", "--avg_window", "2", "--sample_batch_size", "1",
+    ]
+    outs = cli.run(cli.build_parser().parse_args(argv + ["--train_num_steps", "4"]))
+    folder = tmp_path / "tiny"
+    assert [tuple(o.shape) for o in outs] == [(1, 48, 64, 3), (1, 68, 91, 3), (1, 96, 128, 3)]
+    for name in ("model-1.pt", "model-2.pt", "model-2.loss.json", "sample-1.png", "sample-2.png"):
+        assert (folder / name).exists(), name
+    assert len(json.loads((folder / "model-2.loss.json").read_text())["running_loss"]) == 2
+    assert Image.open(folder / "sample-1.png").size == (4 * 64 + 10, 4 * 48 + 10)  # 16 samples, a 4x4 grid
+    assert len(list(folder.glob("final_samples/out_s*_post_train_*.png"))) == 3
+    data = torch.load(folder / "model-2.pt", weights_only=True)
+    assert data["step"] == 4 and {"model", "ema", "sched", "opt", "running_loss"} <= set(data)
+    capsys.readouterr()
+    cli.run(cli.build_parser().parse_args(argv + ["--train_num_steps", "6", "--load_milestone", "-1"]))
+    assert "resumed at step 4" in capsys.readouterr().out
+    data = torch.load(folder / "model-3.pt", weights_only=True)
+    assert data["step"] == 6 and len(data["running_loss"]) == 3 and data["sched"]["last_epoch"] == 6
+    with pytest.raises(SystemExit, match="float32"):
+        cli.run(cli.build_parser().parse_args(argv + ["--compute_dtype", "bfloat16"]))
+
+
+def test_modes_take_a_reference_checkpoint(dataset, tmp_path, capsys):
+    """--load_reference_ckpt: a model-{milestone}.pt written by the JAX
+    package's exporter is sampled from, and trained on from its step."""
+    from sinddm_tpu.models.export_reference import save_reference_checkpoint
+    from sinddm_tpu.schedules import make_schedules as jax_make_schedules
+
+    ckpt = tmp_path / "model-7.pt"
+    save_reference_checkpoint(str(ckpt), random_flax_params(dim=8, seed=1), random_flax_params(dim=8, seed=2),
+                              jax_make_schedules(timesteps=10, scale_losses=(0.5, 0.4), n_scales=3), step=6)
+    argv = ["--device", "cpu", "--dataset_folder", str(dataset), "--image_name", "tiny.png", "--results_folder",
+            str(tmp_path), "--scope", "tiny", "--dim", "8", "--timesteps", "10", "--sample_batch_size", "1",
+            "--load_reference_ckpt", str(ckpt)]
+    cli.run(cli.build_parser().parse_args(["--mode", "sample"] + argv))
+    assert "imported reference checkpoint at step 6" in capsys.readouterr().out
+    cli.run(cli.build_parser().parse_args(["--mode", "train", "--train_batch_size", "1", "--train_num_steps", "8",
+                                           "--save_and_sample_every", "4"] + argv))
+    assert "imported reference checkpoint at step 6" in capsys.readouterr().out
+    assert torch.load(tmp_path / "tiny" / "model-2.pt", weights_only=True)["step"] == 8

@@ -15,8 +15,20 @@ against their plain version (``bilinear_sample_mm``; for win3
 ``bilinear_sample_split3``): value atol 1e-5, image gradient 1e-5 of max
 |gradient| (the adjoints' atomics sum in an order that changes from run to
 run); win3 against the exact warp at the JAX package's bounds, value 3e-4
-and gradient 7e-5 of max |gradient|.
+and gradient 7e-5 of max |gradient|; the win3 adjoint also against its
+plain version in float64 at 1e-5 of max |gradient| and against the
+windowed adjoint on the same coords at 7e-5. Training, in the trainer's
+fp32 scope with cuDNN's TF32 otherwise on (PyTorch's default), against
+float64 on the card: the differentiable block's values within 1e-5 of max
+|value| and its gradients within 1e-4 of each max |gradient|; one train
+step's loss within 1e-5 relative, its gradients within 1e-4 of max
+|gradient| and every parameter's change within 1e-2 lr for all but 0.1% of
+the elements (Adam's first step is about lr times the gradient's sign,
+which a gradient near zero may flip). The control: the same step without
+the trainer's scope, in TF32, breaks one of those bounds.
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -374,3 +386,130 @@ def test_warp_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):  # coords of another batch
         ws.bilinear_sample_pallas_winx(img, coords[:1])
     assert all(n == 0 for n in ws.launches.values())
+
+
+def _split3_adjoint_f64(ct, coords3, img_shape):
+    """win3's adjoint as its plain version forms it (the hat matrices with
+    the TPU kernel's weights, A * ct in fp32, both factors split into bf16
+    parts), the three products and their sums in float64."""
+    from sinddm_tpu_torch.ops.warp import _soft_onehots
+
+    b, h, w, c = img_shape
+    out = torch.zeros(img_shape, dtype=torch.float64, device=ct.device)
+    for i in range(b):
+        A, B, _ = _soft_onehots(coords3[i], h, w)
+        b_hi, b_lo = (t.double() for t in ws._split_bf16(B))
+        for ch in range(c):
+            g_hi, g_lo = (t.double() for t in ws._split_bf16(A * ct[i, :, ch : ch + 1]))
+            out[i, :, :, ch] = (g_hi.T @ b_hi + g_hi.T @ b_lo) + g_lo.T @ b_hi
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 65])
+@pytest.mark.parametrize("case", ["views", "scattered", "mixed", "frame37x45", "flat"])
+def test_win3_adjoint_matches_float64_and_the_windowed_adjoint(gen, case, c):
+    """Kernel 10 runs the patch body with split terms: its shared-memory box
+    where a patch's box fits, its direct branch where it does not (the
+    scattered and mixed cases, asserted from the plan), on flat coords, 37x45
+    frames and a 300-row source; against the split3 adjoint in float64 and
+    against the windowed adjoint (exact terms) on the same coords."""
+    img, coords, _ = _run_case(gen, case, c)
+    coords3, frame_w = coords.reshape(2, -1, 2), coords.shape[-2]
+    plan = ws.whole_adjoint_patches(coords3, frame_w, img.shape[1:3], c)
+    if case in ("scattered", "mixed"):
+        assert plan["direct"] > 0
+    if case != "scattered" and c == 3:
+        assert plan["shared"] > 0
+    ct = torch.randn(coords3.shape[:-1] + (c,), generator=gen, device="cuda")
+    ws.reset_launches()
+    grad = ws.warp_adjoint(ct, coords3, img.shape, "win3", frame_w)
+    assert ws.launches == {**dict.fromkeys(ws.launches, 0), "win3_bwd": 1}
+    ref = _split3_adjoint_f64(ct, coords3, img.shape)
+    g_win = ws.warp_adjoint(ct, coords3, img.shape, "win", frame_w)
+    g_max = max(ref.abs().max().item(), 1.0)
+    assert (grad.double() - ref).abs().max().item() <= 1e-5 * g_max
+    assert (grad - g_win).abs().max().item() <= 7e-5 * g_max
+
+
+def _block_args(gen, b, h, w, c, co):
+    args = list(_block(gen, b, h, w, c, co, torch.float32))
+    return [None if a is None else a.requires_grad_(True) for a in args]
+
+
+@pytest.mark.parametrize("b,h,w,c,co", [(2, 19, 21, 3, 80), (2, 24, 32, 80, 160), (1, 17, 33, 160, 160),
+                                         (2, 12, 16, 160, 80)])
+def test_train_block_matches_float64(gen, monkeypatch, b, h, w, c, co):
+    """The differentiable block (cuDNN's convolutions in the trainer's fp32
+    scope) against the same block in float64: its values and the gradients
+    of its input and every weight."""
+    from sinddm_tpu_torch.ops.conv_block import conv_block_train
+    from sinddm_tpu_torch.training.trainer import fp32_convs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # PyTorch's default: the scope keeps fp32
+    args = _block_args(gen, b, h, w, c, co)
+    args64 = [None if a is None else a.detach().double().requires_grad_(True) for a in args]
+    ct = torch.randn((b, h, w, co), generator=gen, device="cuda")
+    with fp32_convs():
+        out = conv_block_train(*args)
+        out.backward(ct)
+    out64 = conv_block_train(*args64)
+    out64.backward(ct.double())
+    assert (out.double() - out64).abs().max().item() <= 1e-5 * out64.abs().max().item()
+    for a, a64 in zip(args, args64):
+        if a is not None:
+            assert (a.grad.double() - a64.grad).abs().max().item() <= 1e-4 * a64.grad.abs().max().item()
+
+
+def _dim16_trainer(tmp_path):
+    import numpy as np
+
+    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
+    from sinddm_tpu_torch.models.denoiser import SinDDMNet
+    from sinddm_tpu_torch.pyramid import Pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer
+
+    sizes = ((24, 32), (34, 45), (48, 64))
+    rng = np.random.default_rng(0)
+    images = tuple(rng.uniform(-1, 1, hw + (3,)).astype(np.float32) for hw in sizes)
+    pyr = Pyramid(sizes_hw=sizes, sizes_wh=tuple((w_, h_) for h_, w_ in sizes), images=images,
+                  recon_images=images, rescale_losses=(0.3, 0.2), scale_factor=1.41, n_scales=3)
+    sched = make_schedules(timesteps=100, scale_losses=(0.3, 0.2), n_scales=3, device="cuda")
+    return MultiscaleTrainer(SinDDMNet(dim=16, device="cuda"), sched, pyr, TrainConfig(train_batch_size=4),
+                             DiffusionConfig(), tmp_path, seed=1, device="cuda")
+
+
+def _step_errors(gen, tmp_path, s):
+    from sinddm_tpu_torch.training.trainer import step_vs_float64
+
+    tr = _dim16_trainer(tmp_path)
+    t = torch.randint(0, 100, (4,), generator=gen, device="cuda")
+    noise = torch.randn((4,) + tuple(tr.data_list[s][0].shape[1:]), generator=gen, device="cuda")
+    return step_vs_float64(tr, s, [t], [noise])
+
+
+def _within_step_bounds(e):
+    return e["loss_rel"] <= 1e-5 and e["grad_rel"] <= 1e-4 and e["change_share"] <= 1e-3
+
+
+@pytest.mark.parametrize("s", [0, 2])
+def test_train_step_matches_float64(gen, tmp_path, monkeypatch, s):
+    """One step of the trainer at dim 16 against the same step in float64
+    from the same weights and draws: loss, gradients and Adam's parameter
+    changes. cuDNN's TF32 is on, PyTorch's default, so the trainer's own
+    scope is what keeps the step in fp32."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    e = _step_errors(gen, tmp_path, s)
+    assert _within_step_bounds(e), e
+
+
+@pytest.mark.parametrize("s", [0, 2])
+def test_train_step_bounds_catch_tf32(gen, tmp_path, monkeypatch, s):
+    """The control of the test above: with the trainer's fp32 scope taken
+    away, cuDNN runs the step in TF32, and the comparison breaks a bound."""
+    from sinddm_tpu_torch.training import trainer as trainer_mod
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(trainer_mod, "fp32_convs", contextlib.nullcontext)
+    e = _step_errors(gen, tmp_path, s)
+    assert not _within_step_bounds(e), e

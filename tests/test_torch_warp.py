@@ -302,17 +302,17 @@ def test_whole_adjoint_patch_plan_matches_a_loop(layout, c):
     assert plan == _plan_by_loop(coords3, frame_w, (60, 80), c)
     assert plan["direct"] > 0 and (plan["shared"] > 0 or layout == "flat")
     assert ws._check(torch.zeros(5, 6, 3), torch.zeros(2))[2] == 1
-    for variant in ("whole", "win"):
+    for variant in ("whole", "win", "win3"):
         with pytest.raises(ValueError, match="frame width"):
             ws.warp_adjoint(torch.zeros(1, 16, 3), torch.zeros(1, 16, 2), (1, 5, 6, 3), variant, 5)
 
 
-@pytest.mark.parametrize("variant", ["whole", "win"])
+@pytest.mark.parametrize("variant", ["whole", "win", "win3"])
 @pytest.mark.parametrize("frame_w", [0, 5, 32])
 def test_patch_adjoints_reject_a_frame_width_that_does_not_divide_n(variant, frame_w):
-    """The whole-image and windowed adjoints run one patch body: both take
-    the samples as frames ``frame_w`` wide, and both refuse a width that
-    does not divide the N samples an image, before they look for a card."""
+    """The whole-image, windowed and win3 adjoints run one patch body: each
+    takes the samples as frames ``frame_w`` wide, and each refuses a width
+    that does not divide the N samples an image, before it looks for a card."""
     with pytest.raises(ValueError, match="frame width"):
         ws.warp_adjoint(torch.zeros(2, 48, 3), torch.zeros(2, 48, 2), (2, 5, 6, 3), variant, frame_w)
     with pytest.raises(ValueError, match="CUDA"):  # a width that divides N passes the check
