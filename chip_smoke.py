@@ -63,10 +63,28 @@ each of which exits non-zero when it fails:
    seeds, and its control, a step in TF32; the step time and peak memory of
    every scale; one profiled step at the finest scale. cuDNN's TF32 is on
    in this phase, PyTorch's default, so the trainer's own scope is what
-   keeps its steps in fp32.
+   keeps its steps in fp32;
+9. image-to-image and ROI on the trained balloons-120k EMA weights
+   (``weights/balloons-120k-ema.npz``, ``--load_checkpoint``): through the CLI
+   at dim=160, batch 16, fp32, on phase 8's seeded 248x186 image with a
+   seeded 300x200 input (capped to 273x182 by ``auto_scale``, so kernels 1-2
+   run at a ragged full-width shape) and a seeded mask:
+   ``--mode harmonization`` (5 steps), ``--mode style_transfer`` (15 steps)
+   and ``--mode roi`` (one source box, two target boxes, the balloons step
+   counts). Check the JAX CLI's files and their shapes, finite values, the
+   harmonization composite equal to the input where the dilated mask is 0,
+   and the launch counts; time each run, its library call alone
+   (``image2image``, ``roi_guided_sampling``) and the host preparation (PIL,
+   dilation, histogram) alone; hold a batch-2 style transfer (trained
+   weights) and a batch-2 ``roi`` walk (phase 5's random weights) through the
+   kernels against the plain block, and print the trained ``roi`` walk's
+   difference beside its sensitivity to a 1e-6 change of its first draw;
+   time one denoiser call at the i2i shape and at 16x186x248; check that a
+   ``--profile`` trace of a style transfer names kernels 1 and 2.
 
 The last three lines are the kernels' JSON record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+power limit, and ``{"ok": true, "device": {...}}``; the ``[paths]`` line
+before them holds the walks' times (phase 9's under ``i2i_roi``).
 
 Tolerances (max |kernel - plain| against the plain version's values):
   * fp32 conv block: atol 2e-4 + rtol 2e-4 per element -- the kernel sums
@@ -78,7 +96,14 @@ Tolerances (max |kernel - plain| against the plain version's values):
     half a bf16 ulp of the exact value, + 1e-4 for the fp32 sum (the sum is
     rounded once, and a rounding tie may go either way);
   * finest-scale denoiser call (four blocks chained): 1e-4 of max |plain|;
-  * batch-2 walk, 246 chained denoiser calls: 2e-3 absolute on [-1, 1];
+  * batch-2 walk, 246 chained denoiser calls: 2e-3 absolute on [-1, 1]; the
+    same for the batch-2 style transfer (15 calls, trained weights) and ROI
+    walk (246, random weights) of phase 9. On the trained weights the ROI
+    walk amplifies any difference (a 1e-6 change of its first draw reached
+    2.2e-2 by scale 3 on the H100), so its kernel-vs-plain difference is
+    printed beside that control, not bounded;
+  * the harmonization composite where the dilated mask is exactly 0: equal
+    to the input, bit for bit;
   * view-warp kernels against ``bilinear_sample_mm`` (TF32 off): value atol
     1e-5, image gradient 1e-5 of max |gradient| -- the same fp32 products in
     another order, the adjoint's atomics in an order that changes per run;
@@ -174,6 +199,14 @@ ROI_BOX = (48, 64, 96, 128)  # y x h w: a quarter of the 186x248 image, views of
 TRAIN_BATCH, TRAIN_STEPS = 32, 40
 TRAIN_CHECK_BATCH, TRAIN_CHECK_SEEDS = 8, 5
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_SHARE = 1e-5, 1e-4, 1e-3
+# phase 9: the trained weights, a seeded i2i input (W x H) with a mask box
+# (rows, columns of the input), the CLI's default starting steps, and the
+# ROI boxes (y x h w) inside the 186x248 image
+EMA_NPZ = Path("weights") / "balloons-120k-ema.npz"
+I2I_WH = (300, 200)
+MASK_BOX = (slice(60, 120), slice(110, 190))
+START_T = {"harmonization": 5, "style_transfer": 15}
+ROI_TARGET, ROI_BBS = (40, 60, 60, 80), ((10, 10, 50, 70), (110, 150, 60, 80))
 
 # Dense peak rates (NVIDIA data sheets): fp32 SIMT, TF32 and bf16 tensor
 # cores in FLOP/s, device memory in B/s.
@@ -433,27 +466,14 @@ def tensor_core_check(build) -> None:
         fail(f"conv_block's 3x3 kernels without tensor-core HMMA ({len(convs)} found): {bad}")
 
 
-def train_phase(results) -> dict:
-    """Phase 8: ``--mode train`` through the CLI at full width on a seeded
-    synthetic 248x186 image (the balloons geometry, rescale losses
-    computed), a resume, one step against float64, and the step time and
-    memory of every scale. cuDNN's TF32 is on here, PyTorch's default, so
-    it is the trainer's own scope that keeps its steps in fp32."""
-    import contextlib
-    import io
+def synthetic_dataset():
+    """A temporary folder under ``build/`` (removed with the returned handle)
+    holding ``data/synthetic.png``: seeded uniform noise at the balloons
+    size, 248x186. Returns (handle, the data folder)."""
     import tempfile
 
     import numpy as np
     from PIL import Image
-
-    from sinddm_tpu_torch import cli
-    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
-    from sinddm_tpu_torch.models.denoiser import SinDDMNet
-    from sinddm_tpu_torch.ops import conv_block as cb, dw_conv as dw
-    from sinddm_tpu_torch.pyramid import build_pyramid
-    from sinddm_tpu_torch.schedules import make_schedules
-    from sinddm_tpu_torch.training import trainer as trainer_mod
-    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer, step_vs_float64
 
     work = ROOT / "build"
     work.mkdir(exist_ok=True)
@@ -462,6 +482,261 @@ def train_phase(results) -> dict:
     data.mkdir()
     rng = np.random.default_rng(0)
     Image.fromarray(rng.integers(0, 256, BALLOONS_WH[::-1] + (3,), dtype=np.uint8)).save(data / "synthetic.png")
+    return tmp, data
+
+
+def run_cli(tag, argv):
+    """One ``cli.run`` (what ``cli.main`` calls) with its output echoed
+    under ``tag``: (its outputs, wall seconds ending in a synchronize, the
+    conv_block and dw_conv launches it made, its printed text)."""
+    import contextlib
+    import io
+
+    from sinddm_tpu_torch import cli
+    from sinddm_tpu_torch.ops import conv_block as cb, dw_conv as dw
+
+    buf = io.StringIO()
+    cb.launches = dw.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        outs = cli.run(cli.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"[{tag}] {line}")
+    return outs, wall, {"conv_block": cb.launches, "dw_conv": dw.launches}, text
+
+
+def i2i_roi_phase() -> dict:
+    """Phase 9: harmonization, style transfer and ROI-guided generation
+    through the CLI on the trained balloons weights, at dim 160, batch 16;
+    their files, values, launches and times; a batch-2 style transfer and
+    ROI walk against the plain block; a profile trace of a style transfer."""
+    import numpy as np
+    from PIL import Image
+
+    from sinddm_tpu_torch.apps.i2i import image2image, prepare_i2i
+    from sinddm_tpu_torch.apps.roi import roi_guided_sampling
+    from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
+    from sinddm_tpu_torch.ops import conv_block as cb
+    from sinddm_tpu_torch.pyramid import build_pyramid, load_external_image
+    from sinddm_tpu_torch.schedules import make_schedules
+
+    weights = ROOT / EMA_NPZ
+    if not weights.is_file():
+        fail(f"the trained weights {weights} are missing")
+    tmp, data = synthetic_dataset()
+    (data / "i2i").mkdir()
+    rng = np.random.default_rng(1)
+    Image.fromarray(rng.integers(0, 256, I2I_WH[::-1] + (3,), dtype=np.uint8)).save(data / "i2i" / "input.png")
+    mask_u8 = np.zeros(I2I_WH[::-1] + (3,), np.uint8)
+    mask_u8[MASK_BOX] = 255
+    Image.fromarray(mask_u8).save(data / "i2i" / "mask.png")
+    out = Path(tmp.name) / "results"
+    base = ["--dataset_folder", str(data), "--image_name", "synthetic.png", "--results_folder", str(out),
+            "--dim", str(DIM), "--sample_batch_size", str(BATCH), "--load_checkpoint", str(weights),
+            "--input_image", "input.png", "--harm_mask", "mask.png"]
+    roi_argv = ["--target_roi", *map(str, ROI_TARGET)] + [a for bb in ROI_BBS for a in ("--roi_bb", *map(str, bb))]
+    # the walk takes the balloons step counts (the synthetic image's rescale
+    # losses give others), so it is phase 5's walk with the pastes
+    roi_argv += ["--sample_t_list", *map(str, BALLOONS_T_IDEAL[1:])]
+
+    pyramid = build_pyramid(str(data / "synthetic.png"))
+    n = pyramid.n_scales
+    h_fin, w_fin = pyramid.sizes_hw[-1]
+    inp = load_external_image(str(data / "i2i" / "input.png"), auto_scale=50000)
+    h_in, w_in = inp.shape[:2]
+    if (h_in, w_in) in pyramid.sizes_hw:
+        fail(f"the i2i input {h_in}x{w_in} is a pyramid size")
+    record = {"input_hw": [h_in, w_in]}
+    sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=n, device="cuda")
+    trained = denoiser_from_flax(str(weights), device="cuda")
+
+    def walk_s(run):
+        """The walk alone, the library call the CLI makes, up to a synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def grid_size(w, h):  # save_image's 4-column grid of BATCH samples, 2 px padding
+        return (2 + 4 * (w + 2), 2 + (BATCH // 4) * (h + 2))
+
+    def check_png(path, size):
+        if not path.is_file():
+            fail(f"the CLI wrote no {path.relative_to(out)}")
+        if Image.open(path).size != size:
+            fail(f"{path.relative_to(out)} is {Image.open(path).size}, not {size}")
+
+    for mode, start_t in START_T.items():
+        scope = f"phase9_{mode}"
+        (final,), wall, launches, _ = run_cli(f"{mode} cli", ["--mode", mode, "--scope", scope] + base)
+        # the host preparation alone, as the CLI makes it from the same files:
+        # the input read and capped; the mask read, resized and dilated, or the
+        # input's histogram matched
+        t0 = time.perf_counter()
+        prep_in = load_external_image(str(data / "i2i" / "input.png"), auto_scale=50000)
+        mask01 = (np.asarray(Image.open(data / "i2i" / "mask.png").convert("RGB"), np.float32) / 255.0
+                  if mode == "harmonization" else None)
+        _, mask = prepare_i2i(pyramid, prep_in, mode=mode, start_s=n - 1, mask_img=mask01,
+                              use_hist=mode == "style_transfer")
+        prep_s = time.perf_counter() - t0
+        expect = {"conv_block": start_t * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": start_t * 4}
+        say(f"[i2i {mode}] batch {BATCH} dim {DIM} fp32 trained balloons-120k EMA input {w_in}x{h_in} start_t {start_t}: "
+            f"wall_s {wall:.3f} (the CLI run: pyramid, weights, input, mask, walk, PNGs) host_prep_s {prep_s:.4f} "
+            f"(its input and mask steps alone) launches {launches}")
+        if launches != expect:
+            fail(f"--mode {mode} launch counts {launches} != expected {expect}")
+        if tuple(final.shape) != (BATCH, h_in, w_in, 3) or not bool(torch.isfinite(final).all()):
+            fail(f"--mode {mode}: final {tuple(final.shape)} or non-finite values")
+        if final.min().item() < 0.0 or final.max().item() > 1.0:
+            fail(f"--mode {mode}: the final composite leaves [0, 1]")
+        folder = out / scope
+        check_png(folder / "i2i_final_samples" / f"input_i2i_{mode}.png", grid_size(w_in, h_in))
+        for b in range(BATCH):
+            check_png(folder / "unbatched_i2i_input" / f"out_b{b}.png", (w_in, h_in))
+        i2i_walk_s = walk_s(lambda: image2image(
+            trained, sched, pyramid, prep_in, mode=mode, mask_img=mask01, start_s=n - 1,
+            custom_t=[0] * (n - 1) + [start_t], batch_size=BATCH, generator=torch.Generator(device="cuda").manual_seed(0),
+            device="cuda"))
+        say(f"[i2i {mode}] the image2image call alone (host preparation included) wall_s {i2i_walk_s:.3f}; the CLI's "
+            f"rest (pyramid, weights, PNGs) {wall - i2i_walk_s:.3f} s")
+        record[mode] = {"wall_s": wall, "host_prep_s": prep_s, "image2image_s": i2i_walk_s, "launches": launches}
+        if mode == "harmonization":
+            zero = torch.as_tensor(mask[:, :, 0] == 0.0, device="cuda")
+            share = zero.float().mean().item()
+            input01 = ((torch.as_tensor(inp, device="cuda") + 1.0) * 0.5).clamp(0.0, 1.0)
+            same = bool(torch.equal(final[:, zero], input01[zero].expand(BATCH, -1, -1)))
+            say(f"[check harmonization composite] where the dilated mask is 0 ({share:.4f} of the pixels) the output "
+                f"equals the input bit for bit: {'ok' if same else 'FAIL'}")
+            if not (same and 0.0 < share < 1.0):
+                fail("the harmonization composite differs from the input where the dilated mask is 0")
+            record[mode]["mask_zero_share"] = share
+
+    outs, wall, launches, _ = run_cli("roi cli", ["--mode", "roi", "--scope", "phase9_roi"] + base + roi_argv)
+    calls = sum(BALLOONS_T_IDEAL)
+    expect = {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4}
+    say(f"[roi walk] batch {BATCH} dim {DIM} fp32 trained balloons-120k EMA target {ROI_TARGET} boxes {ROI_BBS} "
+        f"steps {list(BALLOONS_T_IDEAL)} denoiser_calls {calls} wall_s {wall:.3f} (the CLI run) launches {launches}")
+    if launches != expect:
+        fail(f"--mode roi launch counts {launches} != expected {expect}")
+    for o, (h, w) in zip(outs, pyramid.sizes_hw):
+        if tuple(o.shape) != (BATCH, h, w, 3) or not bool(torch.isfinite(o).all()) or o.abs().max().item() > 1 + 1e-5:
+            fail(f"--mode roi output at {h}x{w}: shape {tuple(o.shape)}, non-finite or outside [-1, 1]")
+    check_png(out / "phase9_roi" / "roi_patches.png", (w_fin, h_fin))
+    check_png(out / "phase9_roi" / "final_samples" / "roi_out.png", grid_size(w_fin, h_fin))
+    roi_walk_s = walk_s(lambda: roi_guided_sampling(
+        trained, sched, pyramid, target_roi=ROI_TARGET, roi_bb_list=ROI_BBS, custom_t_list=BALLOONS_T_IDEAL[1:],
+        batch_size=BATCH, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    say(f"[roi walk] the roi_guided_sampling call alone wall_s {roi_walk_s:.3f}; the CLI's rest (pyramid, weights, "
+        f"preview, PNGs) {wall - roi_walk_s:.3f} s")
+    record["roi"] = {"wall_s": wall, "walk_s": roi_walk_s, "launches": launches}
+
+    # batch-2 walks through the kernels against the plain block, under the same
+    # seeded noise, within 2e-3: a style transfer on the trained weights, and
+    # the ROI walk on phase 5's seeded random weights. On the trained weights
+    # the ROI walk carries a difference at scale 0 to O(0.1) at the finest
+    # scale, kernel or not: a 1e-6 relative change of its first draw grows
+    # ~10^4-fold by scale 3 (PERF.md). So there its difference is printed
+    # beside that control, as a finding, and not bounded.
+    seeded = denoiser_from_flax(random_flax_params(dim=DIM, seed=0), device="cuda")
+
+    def noise(seed, rel=0.0):
+        """Seeded draws; with ``rel``, the first one scaled by 1 + rel."""
+        gen, first = torch.Generator(device="cuda").manual_seed(seed), [True]
+
+        def draw(shape):
+            x = torch.randn(shape, generator=gen, device="cuda")
+            if first[0] and rel:
+                x = x * (1.0 + rel)
+            first[0] = False
+            return x
+        return draw
+
+    def style(fn, rel=0.0):
+        return [image2image(fn, sched, pyramid, inp, mode="style_transfer", start_s=n - 1,
+                            custom_t=[0] * (n - 1) + [START_T["style_transfer"]], batch_size=2,
+                            noise_fn=noise(3, rel), device="cuda")[0]]
+
+    def roi(fn, rel=0.0):
+        return roi_guided_sampling(fn, sched, pyramid, target_roi=ROI_TARGET, roi_bb_list=ROI_BBS,
+                                   custom_t_list=BALLOONS_T_IDEAL[1:], batch_size=2, noise_fn=noise(3, rel),
+                                   device="cuda")
+
+    def plain(model):
+        return lambda x, t, s_: model.run(x, t, s_, cb.conv_block_reference)
+
+    def diffs(a, b):
+        torch.cuda.synchronize()
+        return [(x - y).abs().max().item() for x, y in zip(a, b)]
+
+    for what, run, model, weights_name in (("style_transfer", style, trained, "trained balloons-120k"),
+                                           ("roi", roi, seeded, "phase 5's seeded random")):
+        got = run(model)
+        max_abs = diffs(got, run(plain(model)))[-1]
+        ok = max_abs <= 2e-3 and bool(torch.isfinite(got[-1]).all())
+        say(f"[check {what} batch 2 on the {weights_name} weights, kernel vs plain] final max_abs {max_abs:.3e} "
+            f"(atol 2e-3) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the batch-2 {what} through the kernels disagrees with the plain block")
+        record[what]["batch2_vs_plain"] = max_abs
+    got, ref = roi(trained), roi(plain(trained))
+    kernel_vs_plain, control = diffs(got, ref), diffs(ref, roi(plain(trained), 1e-6))
+    say(f"[finding roi batch 2 on the trained weights] per-scale max_abs kernel vs plain "
+        f"{[f'{d:.3e}' for d in kernel_vs_plain]}; plain vs plain with its first draw x (1 + 1e-6) "
+        f"{[f'{d:.3e}' for d in control]} (not bounded: the walk amplifies any difference)")
+    record["roi"]["trained_batch2_vs_plain"], record["roi"]["trained_first_draw_1e-6"] = kernel_vs_plain, control
+
+    # one denoiser call (batch 16, CUDA events) at the i2i input's shape and at
+    # the pyramid's finest
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    record["denoiser_call_ms"] = {}
+    for hw in ((h_in, w_in), (h_fin, w_fin)):
+        x = torch.randn((BATCH,) + hw + (3,), generator=gen, device="cuda")
+        t = torch.full((BATCH,), 10, dtype=torch.long, device="cuda")
+        with torch.no_grad():
+            record["denoiser_call_ms"][f"{hw[0]}x{hw[1]}"] = time_ms(lambda: trained(x, t, float(n - 1)), reps=10)
+    say(f"[time denoiser call batch {BATCH} dim {DIM} fp32] ms {record['denoiser_call_ms']}")
+
+    # a --profile run: its trace must name kernels 1 and 2
+    prof_dir = Path(tmp.name) / "profile"
+    run_cli("style_transfer --profile", ["--mode", "style_transfer", "--scope", "phase9_profile",
+                                         "--profile", str(prof_dir)] + base)
+    traces = list(prof_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--profile wrote {len(traces)} traces, not one")
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    found = {k: sorted(nm for nm in names if k in nm)[:2] for k in ("conv3x3_tc_kernel", "dw5x5_ring_kernel")}
+    say(f"[check style_transfer --profile] trace {traces[0].name} {traces[0].stat().st_size} B, {len(names)} names; "
+        f"kernels 1-2 in it: {found}")
+    if not all(found.values()):
+        fail(f"the --profile trace names no {[k for k, v in found.items() if not v]}")
+    tmp.cleanup()
+    return record
+
+
+def train_phase(results) -> dict:
+    """Phase 8: ``--mode train`` through the CLI at full width on a seeded
+    synthetic 248x186 image (the balloons geometry, rescale losses
+    computed), a resume, one step against float64, and the step time and
+    memory of every scale. cuDNN's TF32 is on here, PyTorch's default, so
+    it is the trainer's own scope that keeps its steps in fp32."""
+    import contextlib
+
+    import numpy as np
+
+    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
+    from sinddm_tpu_torch.models.denoiser import SinDDMNet
+    from sinddm_tpu_torch.ops import conv_block as cb
+    from sinddm_tpu_torch.pyramid import build_pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+    from sinddm_tpu_torch.training import trainer as trainer_mod
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer, step_vs_float64
+
+    tmp, data = synthetic_dataset()
     out = Path(tmp.name) / "results"
     argv = ["--mode", "train", "--dataset_folder", str(data), "--image_name", "synthetic.png",
             "--results_folder", str(out), "--scope", "train", "--dim", str(DIM),
@@ -469,20 +744,10 @@ def train_phase(results) -> dict:
             "--avg_window", "10", "--sample_batch_size", str(BATCH)]
 
     def drive(extra):
-        buf = io.StringIO()
-        cb.launches = dw.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli.main(argv + extra)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        text = buf.getvalue()
-        for line in text.splitlines():
-            say(f"[train cli] {line}")
+        _, wall, launches, text = run_cli("train cli", argv + extra)
         losses = [float(m) for m in re.findall(r"^step:\d+ loss:(\S+)", text, re.M)]
-        return wall, text, losses, {"conv_block": cb.launches, "dw_conv": dw.launches}
+        return wall, text, losses, launches
 
     folder = out / "train"
     wall, text, losses, launches = drive(["--train_num_steps", str(TRAIN_STEPS)])
@@ -1225,7 +1490,10 @@ def main() -> None:
     results["train"] = train_phase(results)
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 9. records -----------------------------------------------------------
+    # ---- 9. image-to-image and ROI -----------------------------------------------
+    results["i2i_roi"] = i2i_roi_phase()
+
+    # ---- 10. records ----------------------------------------------------------
     replaces = {
         "conv_block": "sinddm_tpu/ops/pallas_conv.py:234",
         "dw_conv": "sinddm_tpu/ops/pallas_dw.py:93",
@@ -1259,6 +1527,7 @@ def main() -> None:
         "clip_roi_iteration": results["roi_iteration"], "bf16_tower_vs_fp32": results["bf16_tower"],
         "win3_vs_exact": results["win3_vs_exact"], "win3_iteration_vs_exact": results["win3_iteration"],
         "warp_adjoints_256_views": results["warp_256_views"], "train": results["train"],
+        "i2i_roi": results["i2i_roi"],
     }))
     say(f"[done] total_s {time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""sinddm_tpu_torch — SinDDM sampling and CLIP-guided sampling in PyTorch, with CUDA kernels for Hopper.
+"""sinddm_tpu_torch — SinDDM training and sampling (plain, CLIP-guided, image-to-image, ROI) in PyTorch, with CUDA kernels for Hopper.
 
 A port of the JAX package ``sinddm_tpu`` (which stays the reference).
 Module names mirror the JAX package's, so each counterpart is easy to

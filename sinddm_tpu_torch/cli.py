@@ -1,30 +1,40 @@
-"""Command line of the port: ``python -m sinddm_tpu_torch.cli --mode train``,
-``--mode sample`` and the CLIP-guided modes ``clip_content``,
-``clip_style_gen``, ``clip_style_trans`` and ``clip_roi`` (``--target_roi y
-x h w`` or ``--interactive``).
+"""Command line of the port: ``python -m sinddm_tpu_torch.cli --mode M``, for
+every mode of the JAX CLI: ``train``, ``sample``, the CLIP-guided modes
+``clip_content``, ``clip_style_gen``, ``clip_style_trans`` and ``clip_roi``
+(``--target_roi y x h w`` or ``--interactive``), the image-to-image modes
+``harmonization`` and ``style_transfer`` (``--input_image`` and, for
+harmonization, ``--harm_mask``, both read from ``{dataset_folder}/i2i/``),
+and ``roi`` (``--target_roi`` and one ``--roi_bb y x h w`` a target box, or
+``--interactive`` with ``--roi_n_tar`` boxes).
 
 Takes the flags of ``sinddm_tpu.cli`` for these modes with the same
 defaults and help (the training flags, ``--save_interm``, ``--clip_dtype``,
 ``--warp_precision``, ``--warp_impl`` among them), plus ``--load_checkpoint``
-(an ``.npz`` of the JAX package's denoiser parameters, ``/``-joined keys)
-and ``--device`` (default ``cuda``). Weights come from
-``--load_reference_ckpt`` (a reference ``model-{milestone}.pt``, the
-format ``--mode train`` writes), ``--load_checkpoint``, or
-``--load_milestone`` (``model-{milestone}.pt`` of the results folder, -1 the
-latest); without any, ``--mode train`` starts from flax's initial
-distributions and the other modes sample random weights from ``--seed``.
-``--mode train`` trains in float32 (``--compute_dtype bfloat16`` is
-refused there), writes ``model-{milestone}.pt``, its loss JSON and
+(an ``.npz`` of the JAX package's denoiser parameters, ``/``-joined keys,
+such as ``weights/balloons-120k-ema.npz``) and ``--device`` (default
+``cuda``). ``--device_num N`` selects ``cuda:N`` and is refused with
+``--device cpu``. ``--profile DIR`` wraps the mode in a ``torch.profiler``
+trace written under DIR. Weights come from ``--load_reference_ckpt`` (a
+reference ``model-{milestone}.pt``, the format ``--mode train`` writes),
+``--load_checkpoint``, or ``--load_milestone`` (``model-{milestone}.pt`` of
+the results folder, -1 the latest); without any, ``--mode train`` starts from
+flax's initial distributions and the other modes sample random weights from
+``--seed``. ``--mode train`` trains in float32 (``--compute_dtype bfloat16``
+is refused there), writes ``model-{milestone}.pt``, its loss JSON and
 ``sample-{milestone}.png`` at every milestone, and walks the pyramid after
-training. Writes the same ``final_samples/`` and ``interm_samples_*/`` files
-as the JAX CLI. A CLIP mode needs a ViT-B/32 checkpoint (``--clip_weights``
-or one of the sniffed paths) and stops without one.
+training. Writes the same files as the JAX CLI (``final_samples/``,
+``i2i_final_samples/``, ``unbatched_i2i_*/``, ``roi_patches.png``,
+``interm_samples_*/``). A CLIP mode needs a ViT-B/32 checkpoint
+(``--clip_weights`` or one of the sniffed paths) and stops without one.
 
 Not taken: ``--steps_per_chunk`` and ``--fused_mode`` (they fuse training
-steps into one XLA call; the port runs a step a call), and the mesh flags
-(``--coordinator``, ``--num_processes``, ``--process_id``, ``--mesh_data``,
-``--mesh_spatial``: the port runs on one card). The other modes arrive with
-their slices.
+steps into one XLA call; the port runs a step a call); ``--precompile`` (it
+compiles the sampler's XLA executables ahead of the walk; PyTorch runs
+eagerly and compiles nothing, and the CUDA kernels are built once, at first
+use); the mesh flags (``--coordinator``, ``--num_processes``,
+``--process_id``, ``--mesh_data``, ``--mesh_spatial``: the port runs on one
+card); and ``--bucketed_guidance`` and ``--guidance_seg_len``, which arrive
+with the bucketed guided walk (ROADMAP.md, section 1, item 4).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from pathlib import Path
 
 
 CLIP_MODES = ("clip_content", "clip_style_gen", "clip_style_trans", "clip_roi")
+I2I_MODES = ("harmonization", "style_transfer")
 
 
 def _positive_int(v: str) -> int:
@@ -47,7 +58,7 @@ def _positive_int(v: str) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("sinddm_tpu_torch")
-    p.add_argument("--mode", required=True, choices=["train", "sample", *CLIP_MODES])
+    p.add_argument("--mode", required=True, choices=["train", "sample", *CLIP_MODES, *I2I_MODES, "roi"])
     p.add_argument("--scope", default="forest", help="run name under --results_folder")
     p.add_argument("--dataset_folder", default="./datasets/forest/")
     p.add_argument("--image_name", default="forest.jpeg")
@@ -79,6 +90,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="import a reference PyTorch model-{milestone}.pt "
                         "(denoiser + EMA weights) instead of --load_milestone")
     p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    p.add_argument("--device_num", default=0, type=int,
+                   help="index of the CUDA card to run on (cuda:N, the reference's main.py:53 "
+                        "meaning); refused with --device cpu")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the mode (host, and the card's kernels "
+                        "on a CUDA device) into DIR (open with TensorBoard)")
+    # i2i
+    p.add_argument("--input_image", default="seascape_composite_dragon.png")
+    p.add_argument("--start_t_harm", default=5, type=int)
+    p.add_argument("--start_t_style", default=15, type=int)
+    p.add_argument("--harm_mask", default="seascape_mask_dragon.png")
+    # roi
+    p.add_argument("--roi_n_tar", default=1, type=int)
+    p.add_argument("--roi_bb", nargs="+", type=int, action="append",
+                   help="target ROI box 'y x h w' (repeatable; headless)")
     p.add_argument("--target_roi", nargs=4, type=int,
                    help="source ROI box 'y x h w' (headless)")
     p.add_argument("--interactive", action="store_true",
@@ -122,6 +148,27 @@ def main(argv=None) -> None:
 
 
 def run(args) -> list:
+    """Run the mode that ``args`` names; returns its outputs on the device
+    (the per-scale outputs in [-1, 1]; for harmonization and style transfer
+    the final composite in [0, 1])."""
+    import torch
+
+    device = torch.device(args.device)
+    if args.device_num:
+        if device.type != "cuda":
+            raise SystemExit("--device_num selects a CUDA card; it cannot be combined with --device cpu")
+        device = torch.device("cuda", args.device_num)
+    if not args.profile:
+        return _run_mode(args, device)
+    from sinddm_tpu_torch.utils.profiling import trace
+
+    with trace(args.profile, device):
+        outs = _run_mode(args, device)
+    print(f"profiler trace written to {args.profile}")
+    return outs
+
+
+def _run_mode(args, device) -> list:
     import torch
 
     from sinddm_tpu_torch.apps.sampling import sample_scales, save_interm_scales
@@ -134,7 +181,6 @@ def run(args) -> list:
 
     if args.mode == "train" and args.compute_dtype != "float32":
         raise SystemExit("--mode train trains in float32; --compute_dtype bfloat16 is for the sampling modes")
-    device = torch.device(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.compute_dtype]
     results_folder = Path(args.results_folder) / args.scope
     pyramid = build_pyramid(
@@ -194,7 +240,110 @@ def run(args) -> list:
             args, model, sched, pyramid, generator, args.sample_t_list,
             (args.scale_mul[0], args.scale_mul[1]), results_folder, device,
         )
+    if args.mode in I2I_MODES:
+        return _i2i(args, model, sched, pyramid, generator, results_folder, device)
+    if args.mode == "roi":
+        return _roi(args, model, sched, pyramid, generator, results_folder, device)
     return run_sample(model, "sample")
+
+
+def _i2i(args, model, sched, pyramid, generator, results_folder, device) -> list:
+    """--mode harmonization / style_transfer: the input (and the mask) from
+    ``{dataset_folder}/i2i/``, injected at the finest scale with
+    ``--start_t_harm`` / ``--start_t_style`` steps; writes the batch grid
+    ``i2i_final_samples/{stem}_i2i_{mode}.png`` and each sample as
+    ``unbatched_i2i_{stem}/out_b{b}.png``."""
+    import numpy as np
+
+    from sinddm_tpu_torch.apps.i2i import image2image
+    from sinddm_tpu_torch.apps.sampling import save_interm_scales
+    from sinddm_tpu_torch.ops.image_io import save_image
+    from sinddm_tpu_torch.pyramid import load_external_image
+
+    i2i_folder = os.path.join(args.dataset_folder, "i2i")
+    input_img = load_external_image(os.path.join(i2i_folder, args.input_image), auto_scale=50000)
+    mask_img = None
+    if args.mode == "harmonization":
+        from PIL import Image
+
+        mask_img = np.asarray(Image.open(os.path.join(i2i_folder, args.harm_mask)).convert("RGB"),
+                              np.float32) / 255.0
+    start_t = args.start_t_harm if args.mode == "harmonization" else args.start_t_style
+    n = pyramid.n_scales
+    interm_aux = [] if args.save_interm else None
+    final, _ = image2image(
+        model, sched, pyramid, input_img, mode=args.mode, mask_img=mask_img, start_s=n - 1,
+        custom_t=[0] * (n - 1) + [start_t], batch_size=args.sample_batch_size, omega=args.omega,
+        sample_limited_t=args.sample_limited_t, collect_aux=interm_aux, collect_interm=args.save_interm,
+        generator=generator, device=device,
+    )
+    if interm_aux is not None:
+        save_interm_scales(interm_aux, [n - 1], sched, n, args.sample_limited_t, results_folder)
+    out_dir = results_folder / "i2i_final_samples"
+    stem = args.input_image.rsplit(".", 1)[0]
+    final_host = final.cpu()
+    save_image(final_host, out_dir / f"{stem}_i2i_{args.mode}.png")
+    for b in range(final_host.shape[0]):
+        save_image(final_host[b], results_folder / f"unbatched_i2i_{stem}" / f"out_b{b}.png")
+    print(f"saved i2i results to {out_dir}")
+    return [final]
+
+
+def _roi(args, model, sched, pyramid, generator, results_folder, device) -> list:
+    """--mode roi: the source box (``--target_roi``) pasted into each target
+    box (``--roi_bb``, on the ``--scale_mul``-enlarged canvas) at every scale
+    below the finest, or both drawn with OpenCV's selector
+    (``--interactive``); writes the ``roi_patches.png`` preview and
+    ``final_samples/roi_out.png``."""
+    import numpy as np
+    from PIL import Image
+
+    from sinddm_tpu_torch.apps.clip_apps import _roi_box
+    from sinddm_tpu_torch.apps.roi import roi_guided_sampling
+    from sinddm_tpu_torch.apps.sampling import save_interm_scales
+    from sinddm_tpu_torch.ops.image_io import save_image, to_uint8
+
+    if not args.interactive and (args.target_roi is None or not args.roi_bb):
+        raise SystemExit("--roi mode needs --target_roi and --roi_bb (or --interactive)")
+    n = pyramid.n_scales
+    scale_mul = (args.scale_mul[0], args.scale_mul[1])
+    h_fin, w_fin = pyramid.sizes_hw[n - 1]
+    canvas_h, canvas_w = int(h_fin * scale_mul[0]), int(w_fin * scale_mul[1])
+    target_roi = _roi_box(args, n)
+    if args.interactive:
+        import cv2
+
+        empty = np.ones((canvas_h, canvas_w, 3))
+        roi_bb_list = []
+        for _ in range(args.roi_n_tar):
+            r = cv2.selectROI(empty)
+            roi_bb_list.append([r[1], r[0], r[3], r[2]])
+    else:
+        roi_bb_list = [list(bb) for bb in args.roi_bb]
+
+    # the preview: the source patch nearest-resized into each target box of an empty canvas
+    src01 = (np.asarray(pyramid.images[n - 1]) + 1.0) * 0.5
+    ty, tx, th, tw = (int(v) for v in target_roi)
+    patch_u8 = Image.fromarray(to_uint8(src01[ty : ty + th, tx : tx + tw, :]))
+    preview = np.ones((canvas_h, canvas_w, 3), np.float32)
+    for bb in roi_bb_list:
+        y, x, h, w = (int(v) for v in bb)
+        preview[y : y + h, x : x + w, :] = np.asarray(patch_u8.resize((w, h), Image.NEAREST), np.float32) / 255.0
+    save_image(preview, results_folder / "roi_patches.png")
+
+    interm_aux = [] if args.save_interm else None
+    outs = roi_guided_sampling(
+        model, sched, pyramid, target_roi=target_roi, roi_bb_list=roi_bb_list,
+        custom_t_list=args.sample_t_list, batch_size=args.sample_batch_size, scale_mul=scale_mul,
+        omega=args.omega, sample_limited_t=args.sample_limited_t, collect_aux=interm_aux,
+        collect_interm=args.save_interm, generator=generator, device=device,
+    )
+    if interm_aux is not None:
+        save_interm_scales(interm_aux, range(n), sched, n, args.sample_limited_t, results_folder)
+    out_dir = results_folder / "final_samples"
+    save_image((outs[-1] + 1) * 0.5, out_dir / "roi_out.png")
+    print(f"saved ROI results to {out_dir}")
+    return outs
 
 
 def _train(args, sched, pyramid, results_folder, device):

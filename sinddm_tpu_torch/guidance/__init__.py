@@ -1,1 +1,1 @@
-"""CLIP guidance: the view extractor and the sampling hook."""
+"""Sampling hooks: CLIP guidance (the view extractor and its hook) and the ROI paste."""

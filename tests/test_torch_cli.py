@@ -2,7 +2,10 @@
 writes the JAX CLI's ``final_samples/`` layout (and, with ``--save_interm``,
 its ``interm_samples_scale_{s}/`` frames, pixel for pixel as the JAX
 package's ``save_interm_frames`` writes them); shared flags keep the JAX
-CLI's defaults."""
+CLI's defaults. ``--mode harmonization|style_transfer|roi`` write the JAX
+CLI's files (``i2i_final_samples/``, ``unbatched_i2i_*/``,
+``roi_patches.png``, ``final_samples/roi_out.png``); ``--profile`` writes a
+trace; the flags the port does not take are refused."""
 
 import numpy as np
 import pytest
@@ -12,6 +15,11 @@ from PIL import Image
 from sinddm_tpu.cli import build_parser as jax_build_parser
 from sinddm_tpu_torch import cli
 from sinddm_tpu_torch.models.convert import flatten_tree, random_flax_params
+from torch_clip_draws import one_torch_thread  # noqa: F401  (fixture)
+
+# the JAX CLI's flags that the port does not take (the cli module's docstring says why)
+NOT_TAKEN = {"steps_per_chunk", "fused_mode", "precompile", "coordinator", "num_processes", "process_id",
+             "mesh_data", "mesh_spatial", "bucketed_guidance", "guidance_seg_len"}
 
 
 @pytest.fixture(scope="module")
@@ -153,3 +161,103 @@ def test_modes_take_a_reference_checkpoint(dataset, tmp_path, capsys):
                                            "--save_and_sample_every", "4"] + argv))
     assert "imported reference checkpoint at step 6" in capsys.readouterr().out
     assert torch.load(tmp_path / "tiny" / "model-2.pt", weights_only=True)["step"] == 8
+
+
+@pytest.mark.parametrize("mode", ["sample", "harmonization", "style_transfer", "roi", "clip_roi"])
+def test_every_mode_keeps_the_jax_flags_and_defaults(mode):
+    """The port takes every JAX CLI flag but NOT_TAKEN, with its default,
+    in every mode; its --mode choices are the JAX CLI's nine."""
+    ours = vars(cli.build_parser().parse_args(["--mode", mode]))
+    theirs = vars(jax_build_parser().parse_args(["--mode", mode]))
+    assert set(theirs) - set(ours) == NOT_TAKEN and set(ours) - set(theirs) == {"device"}
+    shared = set(ours) & set(theirs)
+    assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
+
+    def choices(parser):
+        (action,) = [a for a in parser._actions if a.dest == "mode"]
+        return set(action.choices)
+
+    assert choices(cli.build_parser()) == choices(jax_build_parser())
+
+
+@pytest.mark.parametrize("argv", [["--precompile"], ["--mesh_data", "2"], ["--bucketed_guidance"]])
+def test_flags_not_taken_are_refused(argv, capsys):
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--mode", "sample"] + argv)
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def i2i_dataset(dataset):
+    """``{dataset}/i2i/``: a 70x100 input and a mask PNG with a box."""
+    folder = dataset / "i2i"
+    folder.mkdir(exist_ok=True)
+    rng = np.random.default_rng(1)
+    Image.fromarray(rng.integers(0, 256, (70, 100, 3), dtype=np.uint8)).save(folder / "input.png")
+    mask = np.zeros((70, 100, 3), np.uint8)
+    mask[20:40, 30:60] = 255
+    Image.fromarray(mask).save(folder / "mask.png")
+    return dataset
+
+
+def _argv(dataset, tmp_path, mode, *extra):
+    return ["--mode", mode, "--device", "cpu", "--dataset_folder", str(dataset), "--image_name", "tiny.png",
+            "--results_folder", str(tmp_path), "--scope", "tiny", "--dim", "8", "--timesteps", "10",
+            "--sample_batch_size", "2", "--input_image", "input.png", "--harm_mask", "mask.png", *extra]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("mode,start_t", [("harmonization", 5), ("style_transfer", 3)])
+def test_i2i_modes_write_the_jax_cli_files(i2i_dataset, tmp_path, mode, start_t):
+    argv = _argv(i2i_dataset, tmp_path, mode, "--start_t_style", "3", "--save_interm")
+    (final,) = cli.run(cli.build_parser().parse_args(argv))
+    assert tuple(final.shape) == (2, 70, 100, 3) and 0.0 <= final.min() and final.max() <= 1.0
+    folder = tmp_path / "tiny"
+    grid = Image.open(folder / "i2i_final_samples" / f"input_i2i_{mode}.png")
+    assert grid.size == (2 + 2 * 102, 2 + 72)  # two samples in a row, 2 px padding
+    assert sorted(p.name for p in (folder / "unbatched_i2i_input").iterdir()) == ["out_b0.png", "out_b1.png"]
+    assert Image.open(folder / "unbatched_i2i_input" / "out_b0.png").size == (100, 70)
+    # --save_interm: the steps of the finest scale, the only one that runs
+    frames = sorted(p.name for p in (folder / "interm_samples_scale_2").iterdir())
+    assert frames == [f"output_t-{t:03d}_s-2.png" for t in range(start_t)]
+    assert sorted(p.name for p in folder.iterdir() if p.name.startswith("interm")) == ["interm_samples_scale_2"]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_roi_mode_writes_the_jax_cli_files(dataset, tmp_path):
+    argv = _argv(dataset, tmp_path, "roi", "--target_roi", "10", "20", "30", "40", "--roi_bb", "50", "60", "20",
+                 "30", "--roi_bb", "0", "0", "8", "8", "--scale_mul", "1", "1.5")
+    outs = cli.run(cli.build_parser().parse_args(argv))
+    assert [tuple(o.shape[1:3]) for o in outs] == [(48, 96), (68, 136), (96, 192)]
+    folder = tmp_path / "tiny"
+    preview = np.asarray(Image.open(folder / "roi_patches.png"))
+    assert preview.shape == (96, 192, 3)  # the scale_mul canvas
+    src = np.asarray(Image.open(dataset / "scale_2" / "tiny.png"))[10:40, 20:60]
+    np.testing.assert_array_equal(preview[50:70, 60:90], np.asarray(Image.fromarray(src).resize((30, 20),
+                                                                                                Image.NEAREST)))
+    assert (preview[80:, 100:] == 255).all()
+    final = Image.open(folder / "final_samples" / "roi_out.png")
+    assert final.size == (2 + 2 * 194, 2 + 98)
+
+
+def test_roi_mode_without_boxes_is_refused(dataset, tmp_path):
+    for extra in ([], ["--target_roi", "1", "2", "3", "4"], ["--roi_bb", "1", "2", "3", "4"]):
+        with pytest.raises(SystemExit, match="--roi mode needs --target_roi and --roi_bb"):
+            cli.run(cli.build_parser().parse_args(_argv(dataset, tmp_path, "roi", *extra)))
+
+
+def test_device_num_is_refused_with_the_cpu(dataset, tmp_path):
+    with pytest.raises(SystemExit, match="--device_num"):
+        cli.run(cli.build_parser().parse_args(_argv(dataset, tmp_path, "sample", "--device_num", "1")))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_profile_writes_a_trace(dataset, tmp_path, capsys):
+    import json
+
+    argv = _argv(dataset, tmp_path, "sample", "--timesteps", "3", "--profile", str(tmp_path / "prof"))
+    cli.run(cli.build_parser().parse_args(argv))
+    assert f"profiler trace written to {tmp_path / 'prof'}" in capsys.readouterr().out
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert any("conv" in n for n in names)  # the denoiser's CPU ops are in it

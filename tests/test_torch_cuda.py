@@ -25,7 +25,10 @@ step's loss within 1e-5 relative, its gradients within 1e-4 of max
 |gradient| and every parameter's change within 1e-2 lr for all but 0.1% of
 the elements (Adam's first step is about lr times the gradient's sign,
 which a gradient near zero may flip). The control: the same step without
-the trainer's scope, in TF32, breaks one of those bounds.
+the trainer's scope, in TF32, breaks one of those bounds. An i2i walk and a
+ROI walk at dim 16 through the kernels against the same walks through the
+plain conv block, under the same seeded noise: 2e-3 absolute, the bound of
+a batch-2 walk in ``chip_smoke.py``.
 """
 
 import contextlib
@@ -513,3 +516,72 @@ def test_train_step_bounds_catch_tf32(gen, tmp_path, monkeypatch, s):
     monkeypatch.setattr(trainer_mod, "fp32_convs", contextlib.nullcontext)
     e = _step_errors(gen, tmp_path, s)
     assert not _within_step_bounds(e), e
+
+
+def _dim16_walk(gen):
+    """A 3-scale pyramid of seeded images, its schedules and a seeded dim-16
+    denoiser on the card, with the same network through the plain block."""
+    import numpy as np
+
+    from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
+    from sinddm_tpu_torch.pyramid import Pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+
+    sizes = ((24, 32), (34, 45), (48, 64))
+    rng = np.random.default_rng(0)
+    images = tuple(rng.uniform(-1, 1, hw + (3,)).astype(np.float32) for hw in sizes)
+    pyr = Pyramid(sizes_hw=sizes, sizes_wh=tuple((w_, h_) for h_, w_ in sizes), images=images,
+                  recon_images=images, rescale_losses=(0.3, 0.2), scale_factor=1.41, n_scales=3)
+    sched = make_schedules(timesteps=100, scale_losses=(0.3, 0.2), n_scales=3, device="cuda")
+    model = denoiser_from_flax(random_flax_params(dim=16, seed=3), device="cuda")
+    return pyr, sched, {"kernel": model, "plain": lambda x, t, s_: model.run(x, t, s_, cb.conv_block_reference)}
+
+
+def _walk_both(paths, run):
+    """``run(model_fn, generator)`` through the kernels and through the plain
+    block, from the same seed; the kernel run's launch counts."""
+    out = {}
+    for name, fn in paths.items():
+        cb.launches = dw.launches = 0
+        out[name] = run(fn, torch.Generator(device="cuda").manual_seed(5))
+        if name == "kernel":
+            launches = {"conv_block": cb.launches, "dw_conv": dw.launches}
+    torch.cuda.synchronize()
+    return out, launches
+
+
+@pytest.mark.parametrize("mode", ["harmonization", "style_transfer"])
+def test_i2i_walk_kernels_match_plain(gen, mode):
+    import numpy as np
+
+    from sinddm_tpu_torch.apps.i2i import image2image
+
+    pyr, sched, paths = _dim16_walk(gen)
+    rng = np.random.default_rng(1)
+    input_img = rng.uniform(-1, 1, (41, 57, 3)).astype(np.float32)  # no pyramid size
+    mask = np.zeros((41, 57, 3), np.float32)
+    mask[10:20, 30:45] = 1.0
+    custom_t = [0, 6, 5]
+    out, launches = _walk_both(paths, lambda fn, g: image2image(
+        fn, sched, pyr, input_img, mode=mode, mask_img=mask, start_s=1, custom_t=custom_t, batch_size=2,
+        generator=g, device="cuda"))
+    calls = sum(custom_t[1:])
+    assert launches == {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4}
+    (fk, ok), (fp, op) = out["kernel"], out["plain"]
+    assert fk.shape == (2, 41, 57, 3) and bool(torch.isfinite(fk).all())
+    assert (fk - fp).abs().max().item() <= 2e-3
+    for a, b in zip(ok, op):
+        assert (a - b).abs().max().item() <= 2e-3
+
+
+def test_roi_walk_kernels_match_plain(gen):
+    from sinddm_tpu_torch.apps.roi import roi_guided_sampling
+
+    pyr, sched, paths = _dim16_walk(gen)
+    out, launches = _walk_both(paths, lambda fn, g: roi_guided_sampling(
+        fn, sched, pyr, target_roi=[4, 6, 20, 24], roi_bb_list=[[24, 30, 16, 20], [2, 40, 10, 12]], batch_size=2,
+        scale_mul=(1.0, 1.5), generator=g, device="cuda"))
+    calls = sum(sched.num_timesteps_ideal)
+    assert launches == {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4}
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert bool(torch.isfinite(a).all()) and (a - b).abs().max().item() <= 2e-3

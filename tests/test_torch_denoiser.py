@@ -1,6 +1,8 @@
 """Port denoiser == the JAX package's ``SinDDMNet.apply`` and
 ``apply_denoiser_pallas`` (interpret mode), on random weights at dim=16 and
-on the trained ``checkpoints/balloons-120k`` EMA weights at dim=160."""
+on the trained ``checkpoints/balloons-120k`` EMA weights at dim=160; the
+committed ``weights/balloons-120k-ema.npz`` (``export_weights.py``) is that
+EMA tree, bit for bit."""
 
 from pathlib import Path
 
@@ -24,6 +26,7 @@ from sinddm_tpu_torch.models.denoiser import SinDDMNet, compute_cond_vec, sinuso
 from sinddm_tpu_torch.ops import conv_block as cb
 
 CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / "balloons-120k"
+EMA_NPZ = Path(__file__).resolve().parents[1] / "weights" / "balloons-120k-ema.npz"
 
 
 @pytest.fixture(scope="module")
@@ -108,8 +111,23 @@ def _restore_ema(path: Path):
     return jax.tree.map(np.asarray, ckptr.restore(path, template)["ema"])
 
 
-def test_balloons_120k_ema_dim160_matches_flax():
-    ema = _restore_ema(CKPT)
+@pytest.fixture(scope="module")
+def balloons_ema():
+    return _restore_ema(CKPT)
+
+
+def test_committed_balloons_npz_equals_the_orbax_ema(balloons_ema):
+    flat = flatten_tree(balloons_ema)
+    with np.load(EMA_NPZ) as npz:
+        assert sorted(npz.files) == sorted(flat)
+        for k, v in flat.items():
+            assert npz[k].dtype == v.dtype == np.float32 and npz[k].shape == v.shape, k
+            np.testing.assert_array_equal(npz[k], v, err_msg=k)
+    assert set(denoiser_params_from_flax(EMA_NPZ)) == set(SinDDMNet(dim=160, device="cpu").state_dict())
+
+
+def test_balloons_120k_ema_dim160_matches_flax(balloons_ema):
+    ema = balloons_ema
     assert ema["l2"]["net_conv2"]["kernel"].shape == (3, 3, 160, 160)
     x = np.random.default_rng(5).standard_normal((2, 12, 16, 3)).astype(np.float32)
     t = np.asarray([5, 60])

@@ -21,14 +21,18 @@ from PIL import Image
 
 from sinddm_tpu_torch import cli
 from sinddm_tpu_torch.apps.clip_apps import clip_sampling
+from sinddm_tpu_torch.apps.i2i import image2image
+from sinddm_tpu_torch.apps.roi import roi_guided_sampling
 from sinddm_tpu_torch.apps.sampling import sample_scales
 from sinddm_tpu_torch.diffusion.core import sample_scale0
+from sinddm_tpu_torch.guidance.roi import make_roi_guidance
 from sinddm_tpu_torch.guidance.clip_guidance import init_clip_carry
 from sinddm_tpu_torch.models.clip.convert import clip_from_state_dict, random_clip_params, random_clip_state_dict
 from sinddm_tpu_torch.models.clip.model import tiny_clip_config
 from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
 from sinddm_tpu_torch.models.denoiser import SinDDMNet
 from sinddm_tpu_torch.schedules import make_schedules
+from sinddm_tpu_torch.utils.profiling import phase_timer, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "regex", "sinddm_tpu"}
@@ -56,7 +60,9 @@ def test_scan_sees_the_whole_package():
             "sinddm_tpu_torch/ops/warp_sample.py", "sinddm_tpu_torch/models/clip/model.py",
             "sinddm_tpu_torch/models/clip/tokenizer.py", "sinddm_tpu_torch/models/clip/convert.py",
             "sinddm_tpu_torch/guidance/clip_extractor.py", "sinddm_tpu_torch/guidance/clip_guidance.py",
-            "sinddm_tpu_torch/apps/clip_apps.py"} <= names
+            "sinddm_tpu_torch/apps/clip_apps.py", "sinddm_tpu_torch/ops/image.py", "sinddm_tpu_torch/apps/i2i.py",
+            "sinddm_tpu_torch/guidance/roi.py", "sinddm_tpu_torch/apps/roi.py",
+            "sinddm_tpu_torch/utils/profiling.py"} <= names
 
 
 def test_tokenizer_reads_its_own_table_with_the_standard_library():
@@ -83,21 +89,34 @@ ENTRY_POINTS = {
     "random_clip_params": lambda: random_clip_params(tiny_clip_config()),
     "clip_from_state_dict": lambda: clip_from_state_dict(random_clip_state_dict(tiny_clip_config()), tiny_clip_config()),
     "clip_sampling": lambda: _clip_sampling_without_device(),
+    "image2image": lambda: image2image(lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), _cpu_pyramid(),
+                                       np.zeros((8, 8, 3), np.float32), mode="style_transfer", batch_size=1),
+    "roi_guided_sampling": lambda: roi_guided_sampling(
+        lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), _cpu_pyramid(), target_roi=[0, 0, 4, 4],
+        roi_bb_list=[[2, 2, 4, 4]], batch_size=1),
+    "make_roi_guidance": lambda: make_roi_guidance(_cpu_pyramid().images, [0, 0, 4, 4], [[2, 2, 4, 4]],
+                                                   scale_factor=1.411, n_scales=2, s=0),
+    "profiling.trace": lambda: trace("unused").__enter__(),
+    "profiling.phase_timer": lambda: phase_timer("unused").__enter__(),
 }
+
+
+def _cpu_pyramid():
+    from sinddm_tpu_torch.pyramid import Pyramid
+
+    sizes = ((8, 8), (11, 11))
+    imgs = tuple(np.zeros(s + (3,), np.float32) for s in sizes)
+    return Pyramid(sizes_hw=sizes, sizes_wh=sizes, images=imgs, recon_images=imgs,
+                   rescale_losses=(0.5,), scale_factor=1.411, n_scales=2)
 
 
 def _clip_sampling_without_device():
     """A CPU tower, schedules and pyramid, but no ``device``: the walk itself
     must reach for the card."""
     from sinddm_tpu_torch.guidance.clip_extractor import ClipExtractor
-    from sinddm_tpu_torch.pyramid import Pyramid
 
-    sizes = ((8, 8), (11, 11))
-    imgs = tuple(np.zeros(s + (3,), np.float32) for s in sizes)
-    pyr = Pyramid(sizes_hw=sizes, sizes_wh=sizes, images=imgs, recon_images=imgs,
-                  rescale_losses=(0.5,), scale_factor=1.411, n_scales=2)
     ex = ClipExtractor(random_clip_params(tiny_clip_config(), device="cpu"), n_aug=1)
-    return clip_sampling(lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), pyr, ex,
+    return clip_sampling(lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), _cpu_pyramid(), ex,
                          text_input="x", strength=0.3, sample_batch_size=1, guidance_sub_iters=[0, 1])
 
 

@@ -26,6 +26,7 @@ from sinddm_tpu_torch.diffusion.core import sample_scale0, sample_via_scale
 from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
 from sinddm_tpu_torch.ops.resize import resize_bilinear
 from sinddm_tpu_torch.schedules import make_schedules
+from torch_walk_draws import NoiseQueue, replay_draws
 
 # tiny-but-real configuration: 3 scales, T=20, dim-16 denoiser
 T = 20
@@ -47,32 +48,12 @@ def setup():
     return flax_model, params, jax_fn, sched_j, model, sched_t
 
 
-def _replay_draws(key, shape, n_steps):
-    """The draws of one scale: the initial one, then one per reverse step."""
-    key, k0 = jax.random.split(key)
-    draws = [np.asarray(jax.random.normal(k0, shape, jnp.float32))]
-    for _ in range(n_steps):
-        key, sub = jax.random.split(key)
-        draws.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
-    return draws
-
-
-class _NoiseQueue:
-    def __init__(self, draws):
-        self.q = [torch.tensor(a) for a in draws]
-
-    def __call__(self, shape):
-        t = self.q.pop(0)
-        assert tuple(t.shape) == tuple(shape), (tuple(t.shape), tuple(shape))
-        return t
-
-
 def test_scale0_loop_matches_jax(setup):
     _, _, jax_fn, sched_j, model, sched_t = setup
     shape = (BATCH,) + SIZES_HW[0] + (3,)
     key = jax.random.PRNGKey(11)
     theirs, _, _ = jax_sample_scale0(jax_fn, sched_j, shape, key, s=0)
-    queue = _NoiseQueue(_replay_draws(key, shape, T))
+    queue = NoiseQueue(replay_draws(key, shape, T))
     with torch.no_grad():
         ours, _, _ = sample_scale0(model, sched_t, shape, noise_fn=queue, device="cpu")
     assert not queue.q  # every draw consumed
@@ -91,7 +72,7 @@ def test_via_scale_loop_matches_jax(setup, s, custom_t, omega):
         jax_fn, sched_j, jax_resize_bilinear(jnp.asarray(base), SIZES_HW[s]), key,
         s=s, total_t=custom_t, omega=omega,
     )
-    queue = _NoiseQueue(_replay_draws(key, shape, custom_t))
+    queue = NoiseQueue(replay_draws(key, shape, custom_t))
     with torch.no_grad():
         ours, _, _ = sample_via_scale(
             model, sched_t, resize_bilinear(torch.from_numpy(base), SIZES_HW[s]),
@@ -117,8 +98,8 @@ def test_full_walk_matches_jax(setup, sample_limited_t, omega):
             custom_sample=True, custom_img_size_idx=s)
         t_start = T if s == 0 else sched_j.num_timesteps_ideal[s]
         t_min = sched_j.num_timesteps_ideal[s + 1] if (sample_limited_t and s < N_SCALES - 1) else 0
-        draws += _replay_draws(sub, (BATCH,) + tuple(hw) + (3,), t_start - t_min)
-    queue = _NoiseQueue(draws)
+        draws += replay_draws(sub, (BATCH,) + tuple(hw) + (3,), t_start - t_min)
+    queue = NoiseQueue(draws)
     aux = []
     ours = sample_scales(model, sched_t, SIZES_HW, noise_fn=queue, device="cpu",
                          collect_aux=aux, collect_interm=True, **kw)
