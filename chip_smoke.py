@@ -80,11 +80,29 @@ each of which exits non-zero when it fails:
    kernels against the plain block, and print the trained ``roi`` walk's
    difference beside its sensitivity to a 1e-6 change of its first draw;
    time one denoiser call at the i2i shape and at 16x186x248; check that a
-   ``--profile`` trace of a style transfer names kernels 1 and 2.
+   ``--profile`` trace of a style transfer names kernels 1 and 2;
+10. the bucketed guided walk (``--bucketed_guidance``): one denoiser call in
+   the valid-mask mode (a 133x177 region of 16x186x248, kernels 1-2 with the
+   mask between their launches) against the valid crop and the plain mask
+   mode, zero outside, and its time beside the crop's and the full canvas's;
+   ``clip_content`` at batch 16 on phase 6's pyramid, denoiser and ViT-B/32
+   with every via scale on the 186x248 canvas: shapes, values, n_guided and
+   the launches of kernels 1, 2, 6 and 7 equal to phase 6's, its wall beside
+   phase 6's and a per-scale walk's right after it; a batch-2
+   ``clip_style_trans`` bucketed against per-scale on the same draws, beside
+   the per-scale walk against itself and a control on other draws that must
+   break the checks; where the valid region is smaller than the canvas, the
+   unguided bucketed via scales at batch 2 through the kernels against the
+   plain block, and at the 133x177 scale on the 186x248 canvas one guidance
+   iteration and two guided steps with kernels 7 and 6 against the
+   matrix-product warp; the vision tower's attention share (one iteration
+   with ``attn_impl="skip"``); the SIFID feature maps (conv proxy, Inception
+   stem, CLIP tokens and patch embedding) on the card against the CPU.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``; the ``[paths]`` line
-before them holds the walks' times (phase 9's under ``i2i_roi``).
+before them holds the walks' times (phase 9's under ``i2i_roi``, phase 10's
+under ``bucketed``).
 
 Tolerances (max |kernel - plain| against the plain version's values):
   * fp32 conv block: atol 2e-4 + rtol 2e-4 per element -- the kernel sums
@@ -104,6 +122,23 @@ Tolerances (max |kernel - plain| against the plain version's values):
     printed beside that control, not bounded;
   * the harmonization composite where the dilated mask is exactly 0: equal
     to the input, bit for bit;
+  * the mask-mode denoiser call (phase 10) against the valid crop and the
+    plain mask mode: 1e-4 of max |plain|, exactly 0 outside the region;
+  * a batch-2 guided walk against another on the same draws (phase 10): the
+    finest scale's share of elements over 0.1 at most WALK_SHARE, the least
+    per-sample cosine (of the updates from the injected image, for
+    clip_style_trans) at least WALK_COS, the clip scores within
+    WALK_SCORE_REL relative. The walks do not repeat (the adjoint's atomics),
+    so these hold the walk's statistics, not its elements: the per-scale walk
+    against itself reads the same, and a walk on other draws must break them;
+  * the unguided bucketed via scales at batch 2 (146 chained denoiser calls
+    on valid crops of the canvas) against the plain block: 2e-3 absolute at
+    every scale, the state exactly 0 outside the valid region; the guidance
+    iteration and the two guided steps at a via scale: the GUIDE bounds
+    below, as at the finest scale, the mask's differences and covered share
+    taken over the valid region, x and the mask exactly 0 outside it;
+  * the SIFID feature maps on the card against the CPU (TF32 off): 1e-4 of
+    max |feature|, the SIFID of two samples within 1e-3 relative;
   * view-warp kernels against ``bilinear_sample_mm`` (TF32 off): value atol
     1e-5, image gradient 1e-5 of max |gradient| -- the same fp32 products in
     another order, the adjoint's atomics in an order that changes per run;
@@ -152,6 +187,7 @@ Tolerances (max |kernel - plain| against the plain version's values):
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import json
 import re
@@ -193,6 +229,16 @@ WARP_REPLACES = {  # C entry -> the TPU kernel's pallas_call
 }
 # the JAX package's win3 gradient error through Mosaic on the TPU (max |dg| on max |g|)
 TPU_WIN3_GRAD_ERR = (7.43, 30.4)
+# phase 10: the valid region of the mask-mode denoiser call (the 133x177 scale
+# on the 186x248 canvas); the guided checks of a batch-2 walk against another
+# on the same draws (finest share of elements over 0.1, least per-sample
+# cosine, clip-score relative difference: over 6 inputs of
+# guided_check_spread.py --walks and one run of this script on an H100,
+# bucketed vs per-scale clip_style_trans read <= 0.361, >= 0.957, <= 3.4e-3,
+# the per-scale walk against itself <= 0.328, >= 0.966, <= 2.4e-3, a walk on
+# other draws >= 0.857, <= 0.310, >= 1.6e-2)
+MASK_VALID_HW = (133, 177)
+WALK_SHARE, WALK_COS, WALK_SCORE_REL = 0.5, 0.9, 1e-2
 ROI_BOX = (48, 64, 96, 128)  # y x h w: a quarter of the 186x248 image, views of 224x298
 # the train phase: the CLI's default batch, steps to two milestones; one step
 # against float64 at a smaller batch over a few seeds, and its bounds
@@ -207,14 +253,6 @@ I2I_WH = (300, 200)
 MASK_BOX = (slice(60, 120), slice(110, 190))
 START_T = {"harmonization": 5, "style_transfer": 15}
 ROI_TARGET, ROI_BBS = (40, 60, 60, 80), ((10, 10, 50, 70), (110, 150, 60, 80))
-
-# Dense peak rates (NVIDIA data sheets): fp32 SIMT, TF32 and bf16 tensor
-# cores in FLOP/s, device memory in B/s.
-PEAKS = {
-    "SXM": dict(fp32=67e12, tf32=495e12, bf16=989e12, mem=3.35e12),
-    "PCIe": dict(fp32=51e12, tf32=378e12, bf16=756e12, mem=2.0e12),
-}
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
@@ -274,9 +312,11 @@ def dw_err(out, x, wdw, bias, vec):
 
 def block_work(b, h, w, c, co, itemsize):
     """FLOPs and bytes one conv block must do (inputs read once, output written once)."""
+    from sinddm_tpu_torch.utils.flops import block_flops_per_pixel
+
     proj = c != co
     px = b * h * w
-    flops = 2 * px * (25 * c + 9 * c * co + 9 * co * co + (c * co if proj else 0))
+    flops = px * block_flops_per_pixel(c, co)
     params = 26 * c + 9 * c * co + co + 9 * co * co + co + ((c + 1) * co if proj else 0)
     nbytes = itemsize * (px * (c + co) + b * c + params)
     return flops, nbytes
@@ -735,6 +775,7 @@ def train_phase(results) -> dict:
     from sinddm_tpu_torch.schedules import make_schedules
     from sinddm_tpu_torch.training import trainer as trainer_mod
     from sinddm_tpu_torch.training.trainer import MultiscaleTrainer, step_vs_float64
+    from sinddm_tpu_torch.utils.flops import denoiser_flops_per_pixel
 
     tmp, data = synthetic_dataset()
     out = Path(tmp.name) / "results"
@@ -833,9 +874,9 @@ def train_phase(results) -> dict:
         step_ms[s] = time_ms(lambda: trainer.train_step(s=s), reps=5, warm=1)
         peak_gb[s] = torch.cuda.max_memory_allocated() / 1e9
         h, w = sizes_hw[s]
-        flops = 3 * TRAIN_BATCH * sum(block_work(1, h, w, c, co, 4)[0] for _, c, co in BLOCKS)
+        flops = 3 * TRAIN_BATCH * h * w * denoiser_flops_per_pixel(DIM)
         say(f"[time train step s={s} {h}x{w} batch {TRAIN_BATCH} fp32, TF32 off] ms {step_ms[s]:.2f} peak_GB "
-            f"{peak_gb[s]:.2f} conv TFLOP {flops / 1e12:.3f} (3x the forward's blocks) TFLOP/s "
+            f"{peak_gb[s]:.2f} TFLOP {flops / 1e12:.3f} (3x the forward's) TFLOP/s "
             f"{flops / step_ms[s] / 1e9:.2f}")
     mean_ms = sum(step_ms.values()) / len(step_ms)
     say(f"[time train step] mean over the uniform scale draw {mean_ms:.2f} ms")
@@ -872,6 +913,321 @@ def profile_train_step(run):
     return dict(groups) | {"busy_ms": busy / 1e3, "idle_share": 1 - busy / window}
 
 
+def guided_walk(model, sched, pyramid, clip_model, batch, seed, mode_cfg, *, bucketed,
+                warp_impl=None, custom_t_list=None, record=None, replay=None):
+    """One guided walk (``clip_sampling``) at ``batch`` from a generator seeded
+    with ``seed``; with ``record`` (an empty list) its noise and loss draws are
+    kept there, with ``replay`` (such a list) they are taken from it. Returns
+    (outputs, aux, wall seconds ending in a synchronize)."""
+    from sinddm_tpu_torch.apps.clip_apps import clip_sampling
+    from sinddm_tpu_torch.guidance import clip_extractor as ce
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, generator=g, warp_impl=warp_impl)
+    kw = {}
+    if record is not None:
+        noise, draws = [], []
+        kw["noise_fn"] = lambda shape: noise.append(torch.randn(shape, generator=g, device="cuda")) or noise[-1]
+        kw["draw_fn"] = lambda b, k: draws.append(ex.draw(b, k)) or draws[-1]
+        record.extend([noise, draws])
+    if replay is not None:
+        noise, draws = list(replay[0]), list(replay[1])
+        kw["noise_fn"] = lambda shape: noise.pop(0)
+        kw["draw_fn"] = lambda b, k: draws.pop(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, aux = clip_sampling(model, sched, pyramid, ex, sample_batch_size=batch, stop_guidance=STOP_GUIDANCE,
+                              reblurring=False, bucketed=bucketed, custom_t_list=custom_t_list,
+                              generator=g, device="cuda", **mode_cfg, **kw)
+    torch.cuda.synchronize()
+    return outs, aux, time.perf_counter() - t0
+
+
+def walk_stats(ours, theirs, start=None, scale=-1) -> dict:
+    """The guided checks of a walk against another: at ``scale`` (the finest)
+    the share of elements over 0.1 and the least per-sample cosine of the two
+    outputs (of their updates ``out - start`` when ``start`` is given); the
+    largest relative difference of the clip-score traces over every guided
+    scale."""
+    (outs_a, aux_a, _), (outs_b, aux_b, _) = ours, theirs
+    a, b = outs_a[scale], outs_b[scale]
+    if start is not None:
+        a, b = a - start, b - start
+    fa, fb = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    cos = ((fa * fb).sum(1) / (fa.norm(dim=1) * fb.norm(dim=1))).min().item()
+    score = 0.0
+    for p, q in zip(aux_a, aux_b):
+        if isinstance(p, dict) and p.get("n_guided"):
+            sp, sq = p["clip_score"][: p["n_guided"]], q["clip_score"][: q["n_guided"]]
+            score = max(score, ((sp - sq).abs() / sq.abs()).max().item())
+    return {"share_over_0.1": share_over((outs_a[scale] - outs_b[scale]).abs(), 0.1), "cosine": cos,
+            "score_rel": score}
+
+
+def bucketed_phase(model, sched, pyramid, clip_model, mode_cfg, per_scale) -> dict:
+    """Phase 10: the bucketed guided walk (``--bucketed_guidance``) and the
+    modules of its slice on the card. ``per_scale`` is phase 6's record of
+    the per-scale walk: its wall, n_guided and launches."""
+    from sinddm_tpu_torch import metrics as tm
+    from sinddm_tpu_torch.apps.clip_apps import clip_mode_config
+    from sinddm_tpu_torch.diffusion.bucketed import place_on_canvas, sample_via_scale_bucketed
+    from sinddm_tpu_torch.guidance import clip_extractor as ce, clip_guidance as cg
+    from sinddm_tpu_torch.models import inception as ti
+    from sinddm_tpu_torch.models.clip.convert import random_clip_params
+    from sinddm_tpu_torch.models.clip.model import VIT_B_32
+    from sinddm_tpu_torch.ops import conv_block as cb, dw_conv as dw, warp_sample as ws
+    from sinddm_tpu_torch.pyramid import Pyramid
+
+    n = pyramid.n_scales
+    sizes_hw = list(pyramid.sizes_hw)
+    h_fin, w_fin = sizes_hw[-1]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+
+    # the valid-mask denoiser call: a 133x177 region of a 16x186x248 canvas
+    # through kernels 1-2 (the stage entries, the mask applied between the
+    # launches), against the plain block in the mask mode and the valid crop
+    vh, vw = MASK_VALID_HW
+    with torch.no_grad():
+        x = torch.randn((BATCH, h_fin, w_fin, 3), generator=gen, device="cuda")
+        t = torch.full((BATCH,), 10, dtype=torch.long, device="cuda")
+        mask = torch.zeros((BATCH, h_fin, w_fin), device="cuda")
+        mask[:, :vh, :vw] = 1.0
+        cb.launches = dw.launches = 0
+        out_mask = model(x, t, 4.0, mask=mask)
+        torch.cuda.synchronize()
+        m_launches = {"conv_block": cb.launches, "dw_conv": dw.launches}
+        out_plain = model.run(x, t, 4.0, cb.conv_block_reference, mask)
+        out_crop = model(x[:, :vh, :vw].contiguous(), t, 4.0)
+        torch.cuda.synchronize()
+    _, _, rel_crop = err_stats(out_mask[:, :vh, :vw], out_crop)
+    _, _, rel_plain = err_stats(out_mask, out_plain)
+    outside = max(out_mask[:, vh:].abs().max().item(), out_mask[:, :, vw:].abs().max().item())
+    ms = {k: time_ms(fn, 5) for k, fn in (("mask", lambda: model(x, t, 4.0, mask=mask)),
+                                           ("crop", lambda: model(x[:, :vh, :vw].contiguous(), t, 4.0)),
+                                           ("full", lambda: model(x, t, 4.0)))}
+    ok = rel_crop <= 1e-4 and rel_plain <= 1e-4 and outside == 0.0 and m_launches == {
+        "conv_block": 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": 4}
+    say(f"[check denoiser mask mode {BATCH}x{h_fin}x{w_fin} valid {vh}x{vw}] vs the crop rel {rel_crop:.3e}, vs the "
+        f"plain mask mode rel {rel_plain:.3e} (<= 1e-4 * max|plain|), max |out| outside {outside} (0), launches "
+        f"{m_launches}; ms mask {ms['mask']:.3f} crop {ms['crop']:.3f} full canvas {ms['full']:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the denoiser's mask mode through the kernels disagrees with the crop or the plain mask mode")
+    out["mask_call"] = {"rel_crop": rel_crop, "rel_plain": rel_plain, **{f"{k}_ms": v for k, v in ms.items()}}
+    del x, mask, out_mask, out_plain, out_crop
+
+    # the bucketed clip_content walk at batch 16, as phase 6 ran the per-scale one
+    cb.launches = dw.launches = 0
+    ws.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    outs, aux, wall = guided_walk(model, sched, pyramid, clip_model, BATCH, 0, mode_cfg, bucketed=True)
+    launches = {"conv_block": cb.launches, "dw_conv": dw.launches, **ws.launches}
+    n_guided = tuple(0 if a is None else a["n_guided"] for a in aux)
+    say(f"[bucketed walk] clip_content batch {BATCH} on the {h_fin}x{w_fin} canvas: n_guided {list(n_guided)} "
+        f"wall_s {wall:.3f} beside the per-scale walk's {per_scale['wall_s']:.3f} (phase 6, this run; "
+        f"{wall / per_scale['wall_s']:.4f}x) peak_GB {torch.cuda.max_memory_allocated() / 1e9:.2f} launches {launches}")
+    if n_guided != per_scale["n_guided"]:
+        fail(f"bucketed n_guided {n_guided} != the per-scale walk's {per_scale['n_guided']}")
+    if launches != per_scale["launches"] or not all(launches[k] for k in ("conv_block", "dw_conv", "winx_fwd",
+                                                                           "win_bwd")):
+        fail(f"bucketed launch counts {launches} != the per-scale walk's {per_scale['launches']}")
+    for o, a, n_g, (h, w) in zip(outs, aux, n_guided, sizes_hw):
+        if tuple(o.shape) != (BATCH, h, w, 3) or not bool(torch.isfinite(o).all()) or o.abs().max().item() > 1.0:
+            fail(f"bucketed output at {h}x{w}: shape {tuple(o.shape)}, non-finite values or outside [-1, 1]")
+        if a is not None:
+            sc = a["clip_score"]
+            if not (bool(torch.isfinite(sc).all()) and bool((sc[:n_g] != 0).all()) and not bool(sc[n_g:].any())):
+                fail(f"bucketed clip_score at {h}x{w}: the first {n_g} rows must be scores, the rest zeros")
+    finest = outs[-1]
+    del outs, aux
+    # the per-scale walk once more, warm as the bucketed one was (phase 6's is
+    # the first guided walk of the run)
+    _, _, again = guided_walk(model, sched, pyramid, clip_model, BATCH, 0, mode_cfg, bucketed=False)
+    say(f"[bucketed walk] wall_s bucketed {wall:.3f}, per-scale {again:.3f} right after it, per-scale "
+        f"{per_scale['wall_s']:.3f} in phase 6 ({wall / again:.4f}x the walk after it)")
+    out.update(wall_s=wall, per_scale_wall_s=per_scale["wall_s"], per_scale_after_s=again, launches=launches)
+
+    # clip_style_trans at batch 2: its one denoised scale is the canvas, so the
+    # bucketed walk is the per-scale walk's process; the same draws in both.
+    # The adjoint's atomics reorder run to run, so the walks are held with
+    # the guided checks, beside a second per-scale walk on the same draws and
+    # a control on other draws, which must break them
+    images = tuple((torch.rand((h, w, 3), generator=gen, device="cuda") * 2 - 1).cpu().numpy() for h, w in sizes_hw)
+    pyr = Pyramid(sizes_hw=pyramid.sizes_hw, sizes_wh=pyramid.sizes_wh, images=images, recon_images=(),
+                  rescale_losses=pyramid.rescale_losses, scale_factor=pyramid.scale_factor, n_scales=n)
+    st_cfg = clip_mode_config("clip_style_trans", "Fire in the Forest", None, None, n)
+    start = F.interpolate(torch.as_tensor(images[n - 2], device="cuda").permute(2, 0, 1)[None], size=(h_fin, w_fin),
+                          mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+    rec = []
+    st = dict(model=model, sched=sched, pyramid=pyr, clip_model=clip_model, batch=2, mode_cfg=st_cfg)
+    ref = guided_walk(seed=20, bucketed=False, record=rec, **st)
+    runs = {"bucketed": guided_walk(seed=20, bucketed=True, replay=rec, **st),
+            "per-scale again": guided_walk(seed=20, bucketed=False, replay=rec, **st),
+            "control, other draws": guided_walk(seed=21, bucketed=True, **st)}
+    stats = {k: walk_stats(v, ref, start) for k, v in runs.items()}
+    held = lambda r: (r["share_over_0.1"] <= WALK_SHARE and r["cosine"] >= WALK_COS  # noqa: E731
+                      and r["score_rel"] <= WALK_SCORE_REL)
+    for k, r in stats.items():
+        say(f"[check clip_style_trans batch 2, {k} vs per-scale] finest share over 0.1 {r['share_over_0.1']:.4f} "
+            f"(<= {WALK_SHARE}) update cosine, least of a sample {r['cosine']:.6f} (>= {WALK_COS}) clip score "
+            f"relative {r['score_rel']:.3e} (<= {WALK_SCORE_REL}) {'held' if held(r) else 'not held'}")
+    if not (held(stats["bucketed"]) and held(stats["per-scale again"])) or held(stats["control, other draws"]):
+        fail("bucketed clip_style_trans: the walk on the same draws is off the per-scale walk, or the control on "
+             "other draws is not")
+    out["style_trans"] = stats
+
+    # the via scales below the finest, where the valid region is smaller than
+    # the canvas. (a) The unguided bucketed via scales at batch 2 from one
+    # scale-0 image: the denoiser on each valid crop through kernels 1-2
+    # against the plain block, on the same draws
+    plain_fn = lambda x, t, s: model.run(x, t, s, cb.conv_block_reference)  # noqa: E731
+    x0 = torch.rand((2,) + tuple(sizes_hw[0]) + (3,), generator=gen, device="cuda") * 2 - 1
+    t_list = [int(v) for v in sched.num_timesteps_ideal[1:]]
+    chains = {}
+    for path, fn in (("kernel", model), ("plain", plain_fn)):
+        cb.launches = dw.launches = 0
+        g = torch.Generator(device="cuda").manual_seed(40)
+        prev, prev_hw, chains[path] = place_on_canvas(x0, (h_fin, w_fin)), sizes_hw[0], []
+        with torch.no_grad():
+            for s in range(1, n):
+                prev, _, _ = sample_via_scale_bucketed(
+                    fn, sched, prev, prev_valid_hw=prev_hw, cur_valid_hw=sizes_hw[s], s=s, total_t=t_list[s - 1],
+                    reblurring=True, generator=g, device="cuda")
+                prev_hw = sizes_hw[s]
+                chains[path].append(prev)
+        torch.cuda.synchronize()
+        if path == "kernel":
+            c_launches = {"conv_block": cb.launches, "dw_conv": dw.launches}
+    calls = sum(t_list)
+    errs = [(k - p).abs().max().item() for k, p in zip(chains["kernel"], chains["plain"])]
+    outside = max(c[:, h:].abs().max().item() + c[:, :, w:].abs().max().item()
+                  for path in chains for c, (h, w) in zip(chains[path][:-1], sizes_hw[1:-1]))
+    ok = (max(errs) <= 2e-3 and outside == 0.0 and all(bool(torch.isfinite(c).all()) for c in chains["kernel"])
+          and c_launches == {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4})
+    say(f"[check unguided bucketed via scales batch 2, kernel vs plain] max_abs by scale "
+        f"{' '.join(f'{h}x{w} {e:.3e}' for (h, w), e in zip(sizes_hw[1:], errs))} (atol 2e-3) max |state| outside "
+        f"the valid region {outside} (0) launches {c_launches} ({calls} denoiser calls) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the bucketed via scales through the kernels disagree with the plain block")
+    out["via_scales_max_abs"] = dict(zip([f"{h}x{w}" for h, w in sizes_hw[1:]], errs))
+    del chains
+
+    # (b) guidance at the 133x177 scale on the 186x248 canvas, at batch 16:
+    # the views cropped from the valid region into the canvas's frame through
+    # kernel 7, read past the valid edge, and the adjoint through kernel 6,
+    # against the matrix-product warp on the same draws; one iteration, then
+    # the first guided step (the masked quantile fixes the edit mask) and the
+    # next one with that mask, held as phase 6 holds them at the finest scale
+    s_v = n - 2
+    vh, vw = sizes_hw[s_v]
+    frame_hw = ce.resize_output_size(h_fin, w_fin)
+    src = F.interpolate(finest.permute(0, 3, 1, 2), size=(vh, vw), mode="bilinear",
+                        align_corners=False).permute(0, 2, 3, 1)
+    x_recon = place_on_canvas(src + 0.05 * torch.randn(src.shape, generator=gen, device="cuda"), (h_fin, w_fin))
+    kernel_ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK,
+                                 generator=torch.Generator(device="cuda").manual_seed(41))
+    plain_ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, warp_impl="mm")
+    text_hr = kernel_ex.get_text_embedding(mode_cfg["text_input"], ce.get_augmentations_template("hr"))
+    region = dict(valid_hw=(vh, vw), frame_hw=frame_hw)
+    draws = kernel_ex.draw(BATCH, text_hr.shape[0])
+    x01 = (x_recon.clamp(-1.0, 1.0) + 1.0) * 0.5
+    ws.reset_launches()
+    with torch.no_grad():
+        loss_k, grad_k = kernel_ex.clip_loss_and_grad(x01, text_hr, draws, **region)
+        torch.cuda.synchronize()
+        v_launches = dict(ws.launches)
+        loss_p, grad_p = plain_ex.clip_loss_and_grad(x01, text_hr, draws, **region)
+        torch.cuda.synchronize()
+    n_chunks = N_AUG // kernel_ex._chunk_size()
+    want = {**dict.fromkeys(v_launches, 0), "winx_fwd": n_chunks, "win_bwd": n_chunks}
+    ok, _, summary = iteration_check(f"check guidance iteration at {vh}x{vw} on the {h_fin}x{w_fin} canvas, frame "
+                                     f"{frame_hw[0]}x{frame_hw[1]}, kernels vs mm", loss_k, grad_k, loss_p, grad_p,
+                                     extra=f"launches {v_launches} ")
+    if not ok or v_launches != want or ws.launches != want:
+        fail(f"the guidance iteration at a via scale through kernels 6-7 disagrees with the plain warp, or its "
+             f"launches {v_launches} / {dict(ws.launches)} != {want}: {summary}")
+    hook_kw = dict(s=s_v, n_scales=n, sub_iters=1, strength=STRENGTH, quantile=1.0 - FILL_FACTOR, llambda=0.2,
+                   stop_guidance=STOP_GUIDANCE, **region)
+
+    def via_step(t_step, carry, step_draws):
+        res = {}
+        for path, ex in (("kernel", kernel_ex), ("plain", plain_ex)):
+            fn = cg.make_clip_guidance(ex, text_hr, draw_fn=lambda b, k: step_draws, **hook_kw)
+            with torch.no_grad():
+                res[path] = fn(x_recon, None, t_step, s_v, carry)
+        torch.cuda.synchronize()
+        (xk, ck, _), (xp, cp, _) = res["kernel"], res["plain"]
+        zero_out = all(t[:, vh:].abs().max().item() == 0 and t[:, :, vw:].abs().max().item() == 0
+                       for t in (xk, xp, ck.mask.float(), cp.mask.float()))
+        return xk, ck, xp, cp, zero_out
+
+    xk, ck, xp, cp, zero_out = via_step(10, cg.init_clip_carry(BATCH, (h_fin, w_fin)), draws)
+    mask_off = (ck.mask[:, :vh, :vw] != cp.mask[:, :vh, :vw]).float().mean().item()
+    covered = ck.mask[:, :vh, :vw].float().mean().item()
+    x_in = x_recon.clamp(-1.0, 1.0)
+    uk, up = (xk - x_in).reshape(BATCH, -1), (xp - x_in).reshape(BATCH, -1)
+    cos = ((uk * up).sum(1) / (uk.norm(dim=1) * up.norm(dim=1))).min().item()
+    ok = (mask_off <= 1e-3 and ck.has_mask and abs(covered - FILL_FACTOR) <= 0.01 and cos >= GUIDE_COS and zero_out
+          and bool(torch.isfinite(xk).all()))
+    say(f"[check first guided step at {vh}x{vw} on the canvas, kernels vs mm] mask differs at {mask_off:.3e} of the "
+        f"valid pixels (<= 1e-3) covered share of the valid region {covered:.4f} (fill factor {FILL_FACTOR}, within "
+        f"0.01) update cosine, least of a sample {cos:.9f} (>= {GUIDE_COS:g}) x and mask zero outside the valid "
+        f"region: {zero_out} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the first guided step at a via scale through kernels 6-7 disagrees with the plain warp")
+    xk, _, xp, _, zero_out = via_step(9, ck, kernel_ex.draw(BATCH, text_hr.shape[0]))
+    over = share_over((xk - xp).abs(), 1e-4)
+    ok = over <= GUIDE_OUTLIERS and zero_out
+    say(f"[check guided step with the mask at {vh}x{vw} on the canvas, kernels vs mm] x share over 1e-4 {over:.3e} "
+        f"(<= {GUIDE_OUTLIERS:g}) worst {(xk - xp).abs().max().item():.3e} zero outside the valid region: "
+        f"{zero_out} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the guided step with the mask at a via scale through kernels 6-7 disagrees with the plain warp")
+    out["via_guidance"] = dict(mask_off=mask_off, covered=covered, update_cos=cos, masked_x_share=over)
+    del x_recon, xk, xp, ck, cp
+
+    # the vision tower's attention share (CLIPConfig attn_impl "skip": v in
+    # place of the attention): that guidance iteration with the same weights,
+    # timed beside the full one
+    skip_ex = ce.ClipExtractor(random_clip_params(dataclasses.replace(VIT_B_32, attn_impl="skip"), seed=0,
+                                                  device="cuda"), n_aug=N_AUG, view_chunk=VIEW_CHUNK)
+
+    def timed_iteration(ex):
+        with torch.no_grad():
+            return time_ms(lambda: ex.clip_loss_and_grad(x01, text_hr, draws, **region), 3)
+
+    it_ms = {"einsum": timed_iteration(kernel_ex), "skip": timed_iteration(skip_ex)}
+    share = 1.0 - it_ms["skip"] / it_ms["einsum"]
+    say(f"[time guidance iteration batch {BATCH} x {N_AUG} views, attention] ms with the attention "
+        f"{it_ms['einsum']:.3f} with v in its place (attn_impl skip) {it_ms['skip']:.3f}: the attention's share "
+        f"{share:.4f}")
+    out["attention_share"] = dict(it_ms, share=share)
+
+    # the metric extractors on the card against the CPU (TF32 off in their scope)
+    img, other = finest[0], finest[1]
+    cpu_clip = copy.deepcopy(clip_model).cpu()
+    inc = ti.random_inception_params(seed=0, device="cuda")
+    inc_cpu = {k: {kk: v.cpu() for kk, v in layer.items()} for k, layer in inc.items()}
+    pairs = {
+        "conv proxy": (tm.conv_feature_extractor(device="cuda"), tm.conv_feature_extractor(device="cpu")),
+        "inception block0": (tm.inception_feature_extractor(inc), tm.inception_feature_extractor(inc_cpu)),
+        "clip tokens": (tm.clip_feature_extractor(clip_model), tm.clip_feature_extractor(cpu_clip)),
+        "clip conv1": (tm.clip_feature_extractor(clip_model, "conv1"), tm.clip_feature_extractor(cpu_clip, "conv1")),
+    }
+    out["metrics"] = {}
+    for name, (card_fn, cpu_fn) in pairs.items():
+        _, _, rel = err_stats(card_fn(img).cpu(), cpu_fn(img.cpu()))
+        d_card, d_cpu = tm.sifid(other, img, card_fn), tm.sifid(other.cpu(), img.cpu(), cpu_fn)
+        ok = rel <= 1e-4 and abs(d_card - d_cpu) <= 1e-3 * abs(d_cpu)
+        say(f"[check metrics {name}, card vs CPU] features rel {rel:.3e} (<= 1e-4 * max) sifid of two bucketed "
+            f"samples {d_card:.6f} vs {d_cpu:.6f} (1e-3 relative) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the {name} features on the card disagree with the CPU")
+        out["metrics"][name] = {"features_rel": rel, "sifid": d_card}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -897,6 +1253,7 @@ def main() -> None:
     from sinddm_tpu_torch.ops import _build, conv_block as cb, dw_conv as dw, warp as wp, warp_sample as ws
     from sinddm_tpu_torch.pyramid import Pyramid, compute_pyramid_geometry
     from sinddm_tpu_torch.schedules import make_schedules
+    from sinddm_tpu_torch.utils.flops import peaks_for, sample_pyramid_flops
 
     t_start = time.perf_counter()
 
@@ -909,7 +1266,7 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peaks = PEAKS["PCIe" if "PCIe" in kind else "SXM"]
+    peaks = peaks_for(kind)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     say(f"[card] {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
@@ -1211,11 +1568,8 @@ def main() -> None:
 
     calls = sum(sched.num_timesteps_ideal)
     expect = {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4}
-    walk_flops = sum(  # four blocks and the final 1x1 conv per denoiser call
-        t_n * (sum(block_work(BATCH, h, w, c, co, 4)[0] for _, c, co in BLOCKS)
-               + 2 * BATCH * h * w * (DIM // 2) * 3)
-        for t_n, (h, w) in zip(sched.num_timesteps_ideal, sizes_hw)
-    )
+    walk_flops = sample_pyramid_flops(sizes_hw, sched.num_timesteps_ideal[1:], BATCH, DIM,
+                                      sched.num_timesteps_ideal[0])
     say(f"[walk] batch {BATCH} dim {DIM} fp32 scales {sizes_hw} steps {list(sched.num_timesteps_ideal)} "
         f"denoiser_calls {calls} wall_s {wall:.3f} TFLOP {walk_flops / 1e12:.2f} "
         f"TFLOP/s {walk_flops / wall / 1e12:.2f} launches {launches}")
@@ -1290,6 +1644,7 @@ def main() -> None:
         fail(f"n_guided {n_guided} != (0, 52, 41, 31, 19)")
     if g_launches != g_expect:
         fail(f"guided launch counts {g_launches} != expected {g_expect}")
+    per_scale = {"wall_s": g_wall, "n_guided": n_guided, "launches": dict(g_launches)}
     for out, a, n_g, (h, w) in zip(g_outs, g_aux, n_guided, sizes_hw):
         if tuple(out.shape) != (BATCH, h, w, 3) or not bool(torch.isfinite(out).all()):
             fail(f"guided output at {h}x{w}: shape {tuple(out.shape)} or non-finite values")
@@ -1493,7 +1848,10 @@ def main() -> None:
     # ---- 9. image-to-image and ROI -----------------------------------------------
     results["i2i_roi"] = i2i_roi_phase()
 
-    # ---- 10. records ----------------------------------------------------------
+    # ---- 10. the bucketed guided walk ----------------------------------------------
+    results["bucketed"] = bucketed_phase(model, sched, pyramid, clip_model, mode_cfg, per_scale)
+
+    # ---- 11. records ----------------------------------------------------------
     replaces = {
         "conv_block": "sinddm_tpu/ops/pallas_conv.py:234",
         "dw_conv": "sinddm_tpu/ops/pallas_dw.py:93",
@@ -1527,7 +1885,7 @@ def main() -> None:
         "clip_roi_iteration": results["roi_iteration"], "bf16_tower_vs_fp32": results["bf16_tower"],
         "win3_vs_exact": results["win3_vs_exact"], "win3_iteration_vs_exact": results["win3_iteration"],
         "warp_adjoints_256_views": results["warp_256_views"], "train": results["train"],
-        "i2i_roi": results["i2i_roi"],
+        "i2i_roi": results["i2i_roi"], "bucketed": results["bucketed"],
     }))
     say(f"[done] total_s {time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))

@@ -18,11 +18,16 @@ default) against the plain warp (``mm``):
   the update x_out - x_in;
 * the next guided step, with that mask: the share of x over 1e-4.
 
+With ``--walks K`` it also measures phase 10's walk checks over K inputs
+(new draws each): a batch-2 ``clip_style_trans`` walk bucketed against
+per-scale on the same draws, the per-scale walk against itself, and a
+control on other draws (which must break the bounds).
+
 It prints one line an input, then for each quantity its least, median and
 largest value and the number of inputs past each bound chip_smoke.py has
 held it to. Needs one CUDA card and nvcc, as chip_smoke.py does:
 
-    python3 guided_check_spread.py [--inputs 40]
+    python3 guided_check_spread.py [--inputs 40] [--walks 0]
 """
 
 from __future__ import annotations
@@ -47,11 +52,16 @@ BOUNDS = {
     "first_update_cos": [("GUIDE_COS", 0.999, "min")],
     "masked_x_share": [("GUIDE_OUTLIERS", 1e-3, "max")],
 }
+# phase 10's walk checks (chip_smoke.py WALK_*); the control on other draws must be past one
+WALK_BOUNDS = {"share_over_0.1": ("WALK_SHARE", "max"), "cosine": ("WALK_COS", "min"),
+               "score_rel": ("WALK_SCORE_REL", "max")}
+WALK_PAIRS = ("style_trans bucketed", "style_trans repeat", "style_trans control")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--inputs", type=int, default=40)
+    parser.add_argument("--walks", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -83,6 +93,35 @@ def main() -> None:
     hook_kw = dict(s=n_scales - 1, n_scales=n_scales, sub_iters=1, strength=cs.STRENGTH,
                    quantile=1.0 - cs.FILL_FACTOR, llambda=0.2)
 
+    for name, (const, side) in WALK_BOUNDS.items():
+        for pair in WALK_PAIRS:
+            BOUNDS[f"{pair} {name}"] = [(const, getattr(cs, const), side)]
+    values = {k: [] for k in BOUNDS}
+    images = tuple((torch.rand((h, w, 3), generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+                    * 2 - 1).cpu().numpy() for h, w in sizes_hw)
+    st = dict(model=model, sched=sched, clip_model=clip_model, batch=2,
+              pyramid=Pyramid(sizes_hw=tuple(sizes_hw), sizes_wh=tuple(sizes_wh), images=images, recon_images=(),
+                              rescale_losses=cs.BALLOONS_LOSSES, scale_factor=factor, n_scales=n_scales),
+              mode_cfg=clip_mode_config("clip_style_trans", "Fire in the Forest", None, None, n_scales))
+    start = torch.nn.functional.interpolate(
+        torch.as_tensor(images[-2], device="cuda").permute(2, 0, 1)[None], size=sizes_hw[-1], mode="bilinear",
+        align_corners=False)[0].permute(1, 2, 0)
+    for i in range(args.walks):
+        rec = []
+        ref = cs.guided_walk(seed=1000 + i, bucketed=False, record=rec, **st)
+        row = {"style_trans bucketed": cs.guided_walk(seed=1000 + i, bucketed=True, replay=rec, **st),
+               "style_trans repeat": cs.guided_walk(seed=1000 + i, bucketed=False, replay=rec, **st),
+               "style_trans control": cs.guided_walk(seed=2000 + i, bucketed=True, **st)}
+        row = {k: cs.walk_stats(v, ref, start) for k, v in row.items()}
+        for pair, r in row.items():
+            for name, v in r.items():
+                values[f"{pair} {name}"].append(v)
+        print(f"[walks {i}] " + " ".join(f"{pair}: " + " ".join(f"{k} {v:.6g}" for k, v in r.items()) + ";"
+                                         for pair, r in row.items()), flush=True)
+    if args.inputs == 0:
+        _summary(values, t0)
+        return
+
     guide_gen = torch.Generator(device="cuda").manual_seed(0)
     extractor = ce.ClipExtractor(clip_model, n_aug=cs.N_AUG, view_chunk=cs.VIEW_CHUNK, generator=guide_gen)
     plain_ex = ce.ClipExtractor(clip_model, n_aug=cs.N_AUG, view_chunk=cs.VIEW_CHUNK, warp_impl="mm")
@@ -103,7 +142,6 @@ def main() -> None:
                 out.append(fn(x_recon, None, t_step, n_scales - 1, carry))
         return out
 
-    values = {k: [] for k in BOUNDS}
     for i in range(args.inputs):
         draws = extractor.draw(b, text_hr.shape[0])
         x01 = (fin.clamp(-1.0, 1.0) + 1.0) * 0.5
@@ -130,7 +168,15 @@ def main() -> None:
             values[k].append(v)
         print(f"[input {i}] " + " ".join(f"{k} {v:.9g}" for k, v in row.items()), flush=True)
 
+    _summary(values, t0)
+
+
+def _summary(values, t0) -> None:
+    """For each measured quantity: its least, median and largest value and
+    the inputs past each bound."""
     for k, vs in values.items():
+        if not vs:
+            continue
         s = sorted(vs)
         past = ", ".join(f"past {name} ({lim:g}): {sum(v > lim if side == 'max' else v < lim for v in vs)}"
                          for name, lim, side in BOUNDS[k])

@@ -1,5 +1,5 @@
 """CLIP-guided application modes: content, style generation, style transfer
-and ROI editing (port of ``sinddm_tpu/apps/clip_apps.py``, the per-scale walk).
+and ROI editing (port of ``sinddm_tpu/apps/clip_apps.py``).
 
 * clip_content: guidance at every scale except 0 (sub_iters [0,1,1,...]),
   the user's strength / fill_factor, llambda 0.2, stop_guidance 3, reblur off;
@@ -11,7 +11,9 @@ and ROI editing (port of ``sinddm_tpu/apps/clip_apps.py``, the per-scale walk).
   finest training image, pasted back, then 3 denoising steps at the finest
   scale.
 
-The shape-bucketed guided walk is not ported yet.
+The guided walk runs per scale (each scale at its own size), or bucketed
+(``bucketed=True``, ``--bucketed_guidance``): every via scale on the finest
+scale's canvas, as :mod:`sinddm_tpu_torch.diffusion.bucketed` sets out.
 """
 
 from __future__ import annotations
@@ -23,9 +25,19 @@ import numpy as np
 import torch
 
 from sinddm_tpu_torch.apps.sampling import sample_scales, save_interm_scales
-from sinddm_tpu_torch.diffusion.core import ModelFn, NoiseFn, sample_via_scale
-from sinddm_tpu_torch.guidance.clip_extractor import ClipExtractor, get_augmentations_template
+from sinddm_tpu_torch.diffusion.bucketed import (
+    dynamic_resize_into_canvas,
+    place_on_canvas,
+    sample_via_scale_bucketed,
+)
+from sinddm_tpu_torch.diffusion.core import ModelFn, NoiseFn, make_noise_fn, sample_scale0, sample_via_scale
+from sinddm_tpu_torch.guidance.clip_extractor import (
+    ClipExtractor,
+    get_augmentations_template,
+    resize_output_size,
+)
 from sinddm_tpu_torch.guidance.clip_guidance import (
+    ClipCarry,
     DrawFn,
     init_clip_carry,
     make_clip_guidance,
@@ -67,6 +79,7 @@ def clip_sampling(
     omega: float = 0.0,
     sample_limited_t: bool = False,
     collect_interm: bool = False,
+    bucketed: bool = False,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
     draw_fn: Optional[DrawFn] = None,
@@ -81,12 +94,26 @@ def clip_sampling(
     ``sample_limited_t`` stops each scale's chain at
     ``num_timesteps_ideal[s+1]``; ``collect_interm`` stacks the per-step
     states under ``"interm"``.
+
+    ``bucketed`` runs the via scales through :func:`clip_sampling_bucketed`.
+    It samples the same process with
+    other draws: they are canvas-shaped, and a guided scale below the
+    finest frames its views as the canvas does.
     """
     n = pyramid.n_scales
     if guidance_sub_iters is None:
         guidance_sub_iters = list(reversed(range(n)))
     embeds_hr = extractor.get_text_embedding(text_input, get_augmentations_template("hr"))
     embeds_lr = extractor.get_text_embedding(text_input, get_augmentations_template("lr"))
+    if bucketed:
+        return clip_sampling_bucketed(
+            model_fn, sched, pyramid, extractor, embeds_hr=embeds_hr, embeds_lr=embeds_lr, strength=strength,
+            sample_batch_size=sample_batch_size, custom_t_list=custom_t_list,
+            guidance_sub_iters=guidance_sub_iters, quantile=quantile, stop_guidance=stop_guidance,
+            llambda=llambda, scale_mul=scale_mul, reblurring=reblurring, omega=omega, start_noise=start_noise,
+            sample_limited_t=sample_limited_t, collect_interm=collect_interm,
+            generator=generator, noise_fn=noise_fn, draw_fn=draw_fn, device=device,
+        )
 
     def guidance_factory(s, size_hw):
         carry = init_clip_carry(sample_batch_size, size_hw, device=device)
@@ -130,6 +157,116 @@ def clip_sampling(
             t_min_s = int(sched.num_timesteps_ideal[s_id + 1]) if (sample_limited_t and s_id < n - 1) else 0
             a["n_guided"] = _n_guided_steps(
                 s_id, total_s, int(guidance_sub_iters[s_id]), n, stop_guidance, t_min_s)
+    return outputs, aux
+
+
+def clip_sampling_bucketed(
+    model_fn: ModelFn,
+    sched: Schedules,
+    pyramid: Pyramid,
+    extractor: ClipExtractor,
+    *,
+    embeds_hr: torch.Tensor,
+    embeds_lr: torch.Tensor,
+    strength: float,
+    sample_batch_size: int,
+    custom_t_list: Optional[Sequence[int]],
+    guidance_sub_iters: Sequence[int],
+    quantile: float,
+    stop_guidance: int,
+    llambda: float,
+    scale_mul: Tuple[float, float] = (1.0, 1.0),
+    reblurring: bool = False,
+    omega: float = 0.0,
+    start_noise: bool = True,
+    sample_limited_t: bool = False,
+    collect_interm: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise_fn: Optional[NoiseFn] = None,
+    draw_fn: Optional[DrawFn] = None,
+    device="cuda",
+) -> Tuple[List[torch.Tensor], List[Any]]:
+    """The guided pyramid with every via scale on the finest scale's canvas
+    (after ``scale_mul``), its views in the canvas's frame.
+
+    Scale 0 runs the usual scale-0 sampler at its own size. With
+    ``start_noise=False`` (clip_style_trans) the training image at scale
+    n-2 is placed on the canvas and only the finest scale is denoised. A
+    guided scale 0's carry (edit mask and last guided estimate) is lifted
+    onto the canvas, not reset; each via scale resizes the carry valid
+    region to valid region as it enters. Every via scale's aux holds
+    ``"clip_score"`` (a row a step; zeros where unguided) and
+    ``"n_guided"``; ``"interm"`` frames are cropped to the scale's size.
+    """
+    n = pyramid.n_scales
+    if custom_t_list is None:
+        custom_t_list = list(sched.num_timesteps_ideal[1:])
+    if noise_fn is None:
+        noise_fn = make_noise_fn(generator, device)
+    sizes = [(int(h * scale_mul[0]), int(w * scale_mul[1])) for h, w in pyramid.sizes_hw]
+    canvas = sizes[-1]
+    frame_hw = resize_output_size(*canvas)
+    b = sample_batch_size
+    hook_kw = dict(n_scales=n, strength=strength, quantile=quantile, llambda=llambda,
+                   stop_guidance=stop_guidance, draw_fn=draw_fn)
+
+    def t_min_of(s: int) -> int:
+        return int(sched.num_timesteps_ideal[s + 1]) if (sample_limited_t and s < n - 1) else 0
+
+    with torch.no_grad():
+        carry = None
+        if start_noise:
+            h0, w0 = sizes[0]
+            gfn0 = make_clip_guidance(extractor, embeds_lr, s=0, sub_iters=int(guidance_sub_iters[0]), **hook_kw)
+            x0, carry0, aux0 = sample_scale0(
+                model_fn, sched, (b, h0, w0, 3), s=0, t_min=t_min_of(0), omega=omega, noise_fn=noise_fn,
+                device=device, guidance_fn=gfn0,
+                guidance_carry=init_clip_carry(b, (h0, w0), device=device) if gfn0 else None,
+                collect_interm=collect_interm,
+            )
+            if isinstance(aux0, dict) and "clip_score" in aux0:
+                aux0["n_guided"] = _n_guided_steps(0, int(sched.num_timesteps), int(guidance_sub_iters[0]), n,
+                                                   stop_guidance, t_min_of(0))
+            outputs, aux = [x0], [aux0]
+            prev_valid = (h0, w0)
+            via_scales = list(range(1, n))
+            if gfn0 is not None:  # lift the guided scale 0's carry onto the canvas
+                carry = ClipCarry(place_on_canvas(carry0.mask, canvas),
+                                  place_on_canvas(carry0.x_recon_prev, canvas), carry0.has_mask)
+        else:
+            img = torch.as_tensor(np.asarray(pyramid.images[n - 2]), dtype=torch.float32, device=device)
+            x0 = img[None].expand((b,) + tuple(img.shape)).contiguous()
+            outputs, aux = [x0], [None]
+            prev_valid = tuple(img.shape[:2])
+            via_scales = [n - 1]
+        if carry is None:
+            carry = init_clip_carry(b, canvas, device=device)
+        prev_canvas = place_on_canvas(x0, canvas)
+
+        for s in via_scales:
+            hs, ws = sizes[s]
+            sub_iters = int(guidance_sub_iters[s])
+            total_t, t_min = int(custom_t_list[s - 1]), t_min_of(s)
+            gfn = make_clip_guidance(extractor, embeds_hr, s=s, sub_iters=sub_iters, valid_hw=(hs, ws),
+                                     frame_hw=frame_hw, **hook_kw)
+            carry = ClipCarry(dynamic_resize_into_canvas(carry.mask, prev_valid, (hs, ws)),
+                              dynamic_resize_into_canvas(carry.x_recon_prev, prev_valid, (hs, ws)), carry.has_mask)
+            x, carry, part = sample_via_scale_bucketed(
+                model_fn, sched, prev_canvas, prev_valid_hw=prev_valid, cur_valid_hw=(hs, ws), s=s,
+                total_t=total_t, t_min=t_min, reblurring=reblurring, omega=omega, guidance_fn=gfn,
+                guidance_carry=carry, collect_interm=collect_interm, noise_fn=noise_fn, device=device,
+            )
+            part = part or {}
+            aux_s = {
+                "clip_score": part.get("clip_score", torch.zeros((max(total_t - t_min, 0), 1), device=x.device)),
+                "n_guided": _n_guided_steps(s, total_t, sub_iters, n, stop_guidance, t_min),
+            }
+            if "interm" in part:
+                aux_s["interm"] = part["interm"][:, :, :hs, :ws]
+            prev_canvas = x
+            prev_valid = (hs, ws)
+            outputs.append(x[:, :hs, :ws].contiguous())
+            aux.append(aux_s)
     return outputs, aux
 
 
@@ -318,6 +455,7 @@ def run_clip_mode(args, model_fn: ModelFn, sched: Schedules, pyramid: Pyramid,
         model_fn, sched, pyramid, extractor, sample_batch_size=args.sample_batch_size,
         custom_t_list=sample_t_list, stop_guidance=3, scale_mul=scale_mul, reblurring=False,
         omega=args.omega, sample_limited_t=args.sample_limited_t, collect_interm=args.save_interm,
+        bucketed=args.bucketed_guidance,
         generator=generator, device=device, **cfg,
     )
     desc = f"{args.mode}_{args.clip_text.replace(' ', '_')}"

@@ -33,8 +33,15 @@ compiles the sampler's XLA executables ahead of the walk; PyTorch runs
 eagerly and compiles nothing, and the CUDA kernels are built once, at first
 use); the mesh flags (``--coordinator``, ``--num_processes``,
 ``--process_id``, ``--mesh_data``, ``--mesh_spatial``: the port runs on one
-card); and ``--bucketed_guidance`` and ``--guidance_seg_len``, which arrive
-with the bucketed guided walk (ROADMAP.md, section 1, item 4).
+card).
+
+``--bucketed_guidance`` runs the via scales of ``clip_content`` and
+``clip_style_*`` on the finest scale's canvas
+(``sinddm_tpu_torch/diffusion/bucketed.py``). ``--guidance_seg_len N`` is
+taken so that the JAX CLI's command lines run, and changes nothing: the JAX
+CLI cuts each chain into device calls of N steps, while the port runs a step
+a call already. A negative N is refused (the JAX CLI takes it and samples
+nothing).
 """
 
 from __future__ import annotations
@@ -53,6 +60,13 @@ def _positive_int(v: str) -> int:
     n = int(v)
     if n < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
+def _non_negative_int(v: str) -> int:
+    n = int(v)
+    if n < 0:
+        raise argparse.ArgumentTypeError(f"must be >= 0, got {n}")
     return n
 
 
@@ -139,6 +153,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "CPU). 'mm' forces the matrix-product version; 'pallas' (whole "
                         "image), 'pallas_win' and 'pallas_winb' are the other kernels of "
                         "sinddm_tpu_torch/csrc/warp_sample.cu")
+    p.add_argument("--bucketed_guidance", action="store_true",
+                   help="run every guided via scale on the finest-scale canvas, the JAX "
+                        "package's shape-bucketed walk (clip_content and clip_style_*, "
+                        "clip_style_trans's injection included). The same sampling process "
+                        "with other noise draws than the per-scale walk (they are drawn at "
+                        "the canvas's shape), and scales below the finest frame their CLIP "
+                        "views as the finest scale does: per-sample outputs differ, "
+                        "distributions match. The denoiser runs on each scale's valid crop")
+    p.add_argument("--guidance_seg_len", type=_non_negative_int, default=0,
+                   help="accepted for the JAX CLI's command lines and ignored: there it "
+                        "caps each device call at N denoise steps (0 = the whole scale a "
+                        "call); the port runs one step a call already")
     return p
 
 

@@ -70,7 +70,9 @@
 // kernel rounds them to the input type; bf16 x bf16 products are exact in fp32.
 //
 // C interface, loaded with ctypes: every entry returns the first non-zero
-// cudaError_t of its launches (0 on success) and never synchronises.
+// cudaError_t of its launches (0 on success) and never synchronises. A block
+// is its two stage entries called in turn; the denoiser's valid-mask mode
+// zeroes g outside the valid region in between.
 #include <atomic>
 #include <cstdint>
 
@@ -435,10 +437,29 @@ cudaError_t launch_conv3x3(ConvArgs<T> a, int B, int device, cudaStream_t stream
   return cudaGetLastError();
 }
 
+// conv1 + bias + GELU: h1 [B,H,W,C] -> g [B,H,W,Co]
 template <typename T>
-int conv_block(const void* h1_, const void* w1_, const void* b1_, const void* w2_,
-               const void* b2_, const void* x_, const void* wres_, const void* bres_, void* g_,
-               void* out_, int B, int H, int W, int C, int Co, int device, void* stream_) {
+int conv_stage1(const void* h1_, const void* w1_, const void* b1_, void* g_, int B, int H, int W,
+                int C, int Co, int device, void* stream_) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  ConvArgs<T> a{};
+  a.H = H;
+  a.W = W;
+  a.Co = Co;
+  a.in = static_cast<const T*>(h1_);
+  a.Cin = C;
+  a.w = static_cast<const T*>(w1_);
+  a.bias = static_cast<const T*>(b1_);
+  a.out = static_cast<T*>(g_);
+  return (int)launch_conv3x3<T, kGelu>(a, B, device, static_cast<cudaStream_t>(stream_));
+}
+
+// conv2 + bias + residual: g [B,H,W,Co] -> out, the residual from x [B,H,W,C]
+template <typename T>
+int conv_stage2(const void* g_, const void* w2_, const void* b2_, const void* x_,
+                const void* wres_, const void* bres_, void* out_, int B, int H, int W, int C,
+                int Co, int device, void* stream_) {
   const auto stream = static_cast<cudaStream_t>(stream_);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -446,15 +467,6 @@ int conv_block(const void* h1_, const void* w1_, const void* b1_, const void* w2
   a.H = H;
   a.W = W;
   a.Co = Co;
-  // conv1 + bias + GELU: h1 [B,H,W,C] -> g [B,H,W,Co]
-  a.in = static_cast<const T*>(h1_);
-  a.Cin = C;
-  a.w = static_cast<const T*>(w1_);
-  a.bias = static_cast<const T*>(b1_);
-  a.out = static_cast<T*>(g_);
-  err = launch_conv3x3<T, kGelu>(a, B, device, stream);
-  if (err != cudaSuccess) return (int)err;
-  // conv2 + bias + residual: g -> out, the residual from x [B,H,W,C]
   a.in = static_cast<const T*>(g_);
   a.Cin = Co;
   a.w = static_cast<const T*>(w2_);
@@ -462,34 +474,39 @@ int conv_block(const void* h1_, const void* w1_, const void* b1_, const void* w2
   a.res = static_cast<const T*>(x_);
   a.Cres = C;
   a.out = static_cast<T*>(out_);
-  if (wres_ == nullptr) {
-    err = launch_conv3x3<T, kIdentityRes>(a, B, device, stream);
-  } else {
-    a.wres = static_cast<const T*>(wres_);
-    a.bres = static_cast<const T*>(bres_);
-    err = launch_conv3x3<T, kProjRes>(a, B, device, stream);
-  }
-  return (int)err;
+  if (wres_ == nullptr) return (int)launch_conv3x3<T, kIdentityRes>(a, B, device, stream);
+  a.wres = static_cast<const T*>(wres_);
+  a.bres = static_cast<const T*>(bres_);
+  return (int)launch_conv3x3<T, kProjRes>(a, B, device, stream);
 }
 
 }  // namespace sinddm
 
 extern "C" {
 
-// Stages 2 and 3 of the block; h1 (stage 1) comes from dw_conv.cu.
-#define SINDDM_CONV_BLOCK_ARGS                                                              \
-  const void *h1, const void *w1, const void *b1, const void *w2, const void *b2,           \
-      const void *x, const void *wres, const void *bres, void *g, void *out, int B, int H,  \
-      int W, int C, int Co, int device, void *stream
+// The block's two 3x3 stages; h1 (its depthwise stage) comes from dw_conv.cu.
+#define SINDDM_STAGE1_ARGS                                                                   \
+  const void *h1, const void *w1, const void *b1, void *g, int B, int H, int W, int C, int Co, \
+      int device, void *stream
+#define SINDDM_STAGE2_ARGS                                                                   \
+  const void *g, const void *w2, const void *b2, const void *x, const void *wres,            \
+      const void *bres, void *out, int B, int H, int W, int C, int Co, int device, void *stream
 
-int sinddm_conv_block_f32(SINDDM_CONV_BLOCK_ARGS) {
-  return sinddm::conv_block<float>(h1, w1, b1, w2, b2, x, wres, bres, g, out, B, H, W, C, Co,
-                                   device, stream);
+int sinddm_conv_stage1_f32(SINDDM_STAGE1_ARGS) {
+  return sinddm::conv_stage1<float>(h1, w1, b1, g, B, H, W, C, Co, device, stream);
 }
 
-int sinddm_conv_block_bf16(SINDDM_CONV_BLOCK_ARGS) {
-  return sinddm::conv_block<__nv_bfloat16>(h1, w1, b1, w2, b2, x, wres, bres, g, out, B, H, W,
-                                           C, Co, device, stream);
+int sinddm_conv_stage1_bf16(SINDDM_STAGE1_ARGS) {
+  return sinddm::conv_stage1<__nv_bfloat16>(h1, w1, b1, g, B, H, W, C, Co, device, stream);
+}
+
+int sinddm_conv_stage2_f32(SINDDM_STAGE2_ARGS) {
+  return sinddm::conv_stage2<float>(g, w2, b2, x, wres, bres, out, B, H, W, C, Co, device, stream);
+}
+
+int sinddm_conv_stage2_bf16(SINDDM_STAGE2_ARGS) {
+  return sinddm::conv_stage2<__nv_bfloat16>(g, w2, b2, x, wres, bres, out, B, H, W, C, Co, device,
+                                            stream);
 }
 
 const char* sinddm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -207,11 +207,19 @@ def apply_color(x: torch.Tensor, d: ViewDraws) -> torch.Tensor:
 
 def augment_views(img: torch.Tensor, d: ViewDraws, idxs: Sequence[int], fill: float = 1.0,
                   mm_adjoint: bool = True, warp_precision: Optional[str] = None,
-                  warp_impl: Optional[str] = None) -> torch.Tensor:
+                  warp_impl: Optional[str] = None, valid_hw: Optional[Tuple[int, int]] = None,
+                  frame_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Images [B, H, W, 3] in [0, 1] -> the views of ``d`` [B, V, ch, cw, 3].
-    The frame is the image resized to short side 224, long side at most 320."""
-    frame = resize_output_size(img.shape[1], img.shape[2])
-    m_total = view_matrices(d, idxs, (img.shape[1], img.shape[2]), frame)
+    The frame is the image resized to short side 224, long side at most 320.
+
+    The bucketed walk passes ``valid_hw``, the image's top-left valid region
+    on a padded canvas, and ``frame_hw``, a fixed frame: the crops and
+    resizes are then taken from the valid region, and the warp still reads
+    the whole canvas, so a tap past the valid edge reads the canvas's zeros
+    (not the warp's fill), as in the JAX package."""
+    full_hw = (img.shape[1], img.shape[2])
+    frame = resize_output_size(*full_hw) if frame_hw is None else tuple(frame_hw)
+    m_total = view_matrices(d, idxs, full_hw if valid_hw is None else tuple(valid_hw), frame)
     view = W.warp_homography(img, m_total, frame, fill=fill, mm_adjoint=mm_adjoint,
                              precision=warp_precision, impl=warp_impl)
     return W.clip01(apply_color(W.clip01(view), d))
@@ -268,18 +276,21 @@ class ClipExtractor:
         return out.mean(dim=0, keepdim=True) if average_embeddings else out
 
     # -- images --------------------------------------------------------
-    def _embed_chunk(self, x01: torch.Tensor, d: ViewDraws, lo: int, hi: int) -> torch.Tensor:
+    def _embed_chunk(self, x01: torch.Tensor, d: ViewDraws, lo: int, hi: int, valid_hw=None,
+                     frame_hw=None) -> torch.Tensor:
         views = augment_views(x01, d.views(lo, hi), range(lo, hi), self.affine_fill,
                               mm_adjoint=self.mm_adjoint, warp_precision=self.warp_precision,
-                              warp_impl=self.warp_impl)
+                              warp_impl=self.warp_impl, valid_hw=valid_hw, frame_hw=frame_hw)
         b, c = views.shape[:2]
         embs = self.model.encode_image(clip_normalize(views.reshape((b * c,) + views.shape[2:])))
         return embs.reshape(b, c, -1)
 
-    def embed_image_views(self, x01: torch.Tensor, d: ViewDraws) -> torch.Tensor:
-        """[B, H, W, 3] in [0, 1] -> [B, n_aug, D] embeddings of the views of ``d``."""
+    def embed_image_views(self, x01: torch.Tensor, d: ViewDraws, valid_hw=None, frame_hw=None) -> torch.Tensor:
+        """[B, H, W, 3] in [0, 1] -> [B, n_aug, D] embeddings of the views of
+        ``d`` (``valid_hw`` / ``frame_hw`` as in :func:`augment_views`)."""
         c = self._chunk_size()
-        return torch.cat([self._embed_chunk(x01, d, lo, lo + c) for lo in range(0, self.n_aug, c)], dim=1)
+        return torch.cat([self._embed_chunk(x01, d, lo, lo + c, valid_hw, frame_hw)
+                          for lo in range(0, self.n_aug, c)], dim=1)
 
     # -- loss ----------------------------------------------------------
     def _loss_terms(self, text_embeds: torch.Tensor, draws: LossDraws, batch: int):
@@ -298,17 +309,20 @@ class ClipExtractor:
         return (torch.einsum("bvd,td->bvt", img_n, txt_n) * weight).sum()
 
     def calculate_clip_loss(self, x01: torch.Tensor, text_embeds: torch.Tensor,
-                            draws: Optional[LossDraws] = None) -> torch.Tensor:
+                            draws: Optional[LossDraws] = None, valid_hw=None, frame_hw=None) -> torch.Tensor:
         """Stochastic-template CLIP loss of images x01 [B, H, W, 3] in [0, 1]:
         ``sum over images and the first n_sel drawn templates of
-        1.2 (1 - mean over views of cos) / n_sel``. Differentiable in x01."""
+        1.2 (1 - mean over views of cos) / n_sel``. Differentiable in x01.
+        ``valid_hw`` / ``frame_hw``: the views of a padded canvas
+        (:func:`augment_views`)."""
         if draws is None:
             draws = self.draw(x01.shape[0], text_embeds.shape[0])
         const, txt_n, weight = self._loss_terms(text_embeds, draws, x01.shape[0])
-        return const - self._cos_sum(self.embed_image_views(x01, draws.views), txt_n, weight)
+        return const - self._cos_sum(self.embed_image_views(x01, draws.views, valid_hw, frame_hw), txt_n, weight)
 
     def clip_loss_and_grad(self, x01: torch.Tensor, text_embeds: torch.Tensor,
-                           draws: Optional[LossDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                           draws: Optional[LossDraws] = None, valid_hw=None,
+                           frame_hw=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`calculate_clip_loss` and its gradient in x01, the backward
         run view chunk by view chunk so that one chunk's activations live at
         a time. Works under ``torch.no_grad()``."""
@@ -321,7 +335,8 @@ class ClipExtractor:
         c = self._chunk_size()
         with torch.enable_grad():
             for lo in range(0, self.n_aug, c):
-                term = self._cos_sum(self._embed_chunk(leaf, draws.views, lo, lo + c), txt_n, weight)
+                term = self._cos_sum(self._embed_chunk(leaf, draws.views, lo, lo + c, valid_hw, frame_hw),
+                                     txt_n, weight)
                 grad -= torch.autograd.grad(term, leaf)[0]
                 loss = loss - term.detach()
         return loss, grad

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from sinddm_tpu_torch.diffusion.bucketed import valid_mask_2d
 from sinddm_tpu_torch.guidance.clip_extractor import ClipExtractor, LossDraws
 from sinddm_tpu_torch.ops.resize import resize_bilinear
 
@@ -69,20 +70,33 @@ def nearest_quantile_index(quantile: float, n: int) -> int:
     return int(min(max(math.ceil(float(vi) - 0.5), 0), n - 1))
 
 
-def thresholded_grad(grad: torch.Tensor, quantile: float = 0.8) -> Tuple[torch.Tensor, torch.Tensor]:
+def thresholded_grad(grad: torch.Tensor, quantile: float = 0.8, valid_mask: Optional[torch.Tensor] = None,
+                     n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Soft-threshold CLIP gradients at an energy quantile: energy = the L2
     norm over channels; per sample the 'nearest' quantile q of the flattened
     energy; returns (grad scaled to energy - q where positive, else 0;
-    boolean mask energy > q, [B, H, W, 1]). A zero-energy pixel gives 0."""
+    boolean mask energy > q, [B, H, W, 1]). A zero-energy pixel gives 0.
+
+    ``valid_mask`` ([H, W] bool) with ``n_valid`` (its count) takes the
+    quantile over the valid region of a padded canvas only: the other
+    energies sort to +inf, and both outputs are zero outside it."""
     b = grad.shape[0]
     energy = torch.linalg.vector_norm(grad, dim=-1)  # [B, H, W]
     flat = energy.reshape(b, -1)
-    k = nearest_quantile_index(quantile, flat.shape[1])
+    if valid_mask is None:
+        k = nearest_quantile_index(quantile, flat.shape[1])
+    else:
+        flat = torch.where(valid_mask.reshape(1, -1), flat, torch.full_like(flat, float("inf")))
+        k = nearest_quantile_index(quantile, int(n_valid))
     q = torch.sort(flat, dim=1).values[:, k][:, None, None]
     delta = energy - q
     mask = (delta > 0)[..., None]
     unit = torch.nan_to_num(grad / energy[..., None], nan=0.0, posinf=0.0, neginf=0.0)
-    return delta.clamp_min(0.0)[..., None] * unit, mask
+    sparse = delta.clamp_min(0.0)[..., None] * unit
+    if valid_mask is not None:
+        mask = mask & valid_mask[None, :, :, None]
+        sparse = sparse * valid_mask[None, :, :, None]
+    return sparse, mask
 
 
 def _vec_norm(x: torch.Tensor) -> torch.Tensor:
@@ -102,17 +116,26 @@ def make_clip_guidance(
     llambda: float,
     stop_guidance: int,
     draw_fn: Optional[DrawFn] = None,
+    valid_hw: Optional[Tuple[int, int]] = None,
+    frame_hw: Optional[Tuple[int, int]] = None,
 ):
     """Build the per-scale guidance hook (None when sub_iters == 0):
     ``guidance_fn(x_recon, x_t, t, s, carry) -> (x_recon, carry, aux)`` with
     ``t`` and ``s`` Python ints and ``aux = {"clip_score": [sub_iters]}``
     (zeros on a gated step). ``draw_fn`` supplies each loss call's random
-    numbers; by default the extractor draws them from its generator."""
+    numbers; by default the extractor draws them from its generator.
+
+    The bucketed walk (``diffusion/bucketed.py``) passes ``valid_hw``, the
+    image's top-left region of the padded canvas, and ``frame_hw``, the
+    views' fixed frame: the views are cropped from the valid region, the
+    gradient is zeroed outside it (a bilinear tap at its edge can reach the
+    first padded row or column), and the quantile is taken over its pixels."""
     if sub_iters <= 0:
         return None
     if draw_fn is None:
         draw_fn = extractor.draw
     n_templates = text_embeds.shape[0]
+    region = {} if valid_hw is None else dict(valid_hw=tuple(valid_hw), frame_hw=tuple(frame_hw))
 
     def guidance_fn(x_recon, x_t, t: int, s_: int, carry: ClipCarry):
         # gate: guide at every coarser scale, and at the finest while t >= stop_guidance
@@ -123,13 +146,19 @@ def make_clip_guidance(
         if has_mask:
             x = x * (1.0 - mask) + ((1.0 - llambda) * x_prev + llambda * x) * mask
 
+        valid = {}
+        if valid_hw is not None:
+            vmask = valid_mask_2d(tuple(x.shape[1:3]), valid_hw, x.device)
+            valid = dict(valid_mask=vmask, n_valid=valid_hw[0] * valid_hw[1])
         scores = []
         for _ in range(sub_iters):
             loss, grad01 = extractor.clip_loss_and_grad(
-                (x + 1.0) * 0.5, text_embeds, draw_fn(x.shape[0], n_templates))
+                (x + 1.0) * 0.5, text_embeds, draw_fn(x.shape[0], n_templates), **region)
             grad = -0.5 * grad01  # d(-loss((x + 1) / 2)) / dx
+            if valid:
+                grad = grad * valid["valid_mask"][None, :, :, None]
             if not has_mask:  # first-ever iteration: sparsify, and fix the edit mask
-                grad, new_mask = thresholded_grad(grad, quantile)
+                grad, new_mask = thresholded_grad(grad, quantile, **valid)
                 mask = new_mask.to(torch.float32)
                 has_mask = True
             division_norm = _vec_norm(x * mask) / _vec_norm(grad * mask).clamp_min(1e-12)

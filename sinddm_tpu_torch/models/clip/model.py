@@ -18,7 +18,10 @@ plain matmul / softmax, as the JAX package leaves it to XLA.
 products (patch embedding, projections, attention, MLP) and what lies between
 them in bf16, as flax's ``dtype=bfloat16`` layers do; parameters stay fp32,
 the LayerNorms and the residual stream run in fp32, and the text tower is
-untouched. The ``attn_impl`` experiment switch is not ported.
+untouched. ``CLIPConfig(attn_impl="skip")`` is the JAX package's
+experiment switch: the vision tower's attention returns v in place of
+softmax(q k^T / sqrt(d)) v. It is wrong by design, and exists only to
+measure what share of the tower's time the attention takes.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ class CLIPConfig:
     # 'bfloat16': the vision tower's matrix products in bf16 with fp32
     # parameters and fp32 LayerNorms; None / 'float32': all fp32
     compute_dtype: Optional[str] = None
+    # the vision tower's attention: 'einsum', softmax(q k^T / sqrt(d)) v, or
+    # 'skip', v alone -- numerically wrong, for measuring attention's share
+    attn_impl: str = "einsum"
 
     @property
     def vision_heads(self) -> int:
@@ -87,10 +93,13 @@ class MultiheadAttention(nn.Module):
     """Fused qkv projection + output projection, ``nn.MultiheadAttention``'s
     parameter names and layout; computed in ``dtype``."""
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32, attn_impl: str = "einsum"):
         super().__init__()
+        if attn_impl not in ("einsum", "skip"):
+            raise ValueError(f"attn_impl must be 'einsum' or 'skip', got {attn_impl!r}")
         self.heads = heads
         self.dtype = dtype
+        self.attn_impl = attn_impl
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
         self.out_proj = nn.Linear(width, width)
@@ -100,10 +109,13 @@ class MultiheadAttention(nn.Module):
         hd = W // self.heads
         qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
         q, k, v = (t.reshape(B, L, self.heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        attn = q @ k.transpose(-1, -2) / math.sqrt(hd)
-        if mask is not None:
-            attn = attn + mask
-        out = torch.softmax(attn, dim=-1) @ v
+        if self.attn_impl == "skip":
+            out = v
+        else:
+            attn = q @ k.transpose(-1, -2) / math.sqrt(hd)
+            if mask is not None:
+                attn = attn + mask
+            out = torch.softmax(attn, dim=-1) @ v
         return _linear(out.transpose(1, 2).reshape(B, L, W), self.out_proj.weight, self.out_proj.bias, self.dtype)
 
 
@@ -111,10 +123,10 @@ class ResidualAttentionBlock(nn.Module):
     """Pre-LN block; the LayerNorms run on the fp32 residual stream, the
     attention and MLP in ``dtype``, whose output the residual add widens back."""
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32, attn_impl: str = "einsum"):
         super().__init__()
         self.dtype = dtype
-        self.attn = MultiheadAttention(width, heads, dtype)
+        self.attn = MultiheadAttention(width, heads, dtype, attn_impl)
         self.ln_1 = nn.LayerNorm(width, eps=1e-5)
         self.mlp = nn.Sequential(OrderedDict([
             ("c_fc", nn.Linear(width, width * 4)),
@@ -131,9 +143,11 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "einsum"):
         super().__init__()
-        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)])
+        self.resblocks = nn.ModuleList([ResidualAttentionBlock(width, heads, dtype, attn_impl)
+                                        for _ in range(layers)])
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.resblocks:
@@ -194,7 +208,7 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             scale * torch.randn((cfg.image_resolution // ps) ** 2 + 1, width))
         self.ln_pre = nn.LayerNorm(width, eps=1e-5)
-        self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads, cfg.vision_dtype)
+        self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads, cfg.vision_dtype, cfg.attn_impl)
         self.ln_post = nn.LayerNorm(width, eps=1e-5)
         self.proj = nn.Parameter(scale * torch.randn(width, cfg.embed_dim))
 

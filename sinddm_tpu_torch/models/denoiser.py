@@ -20,6 +20,13 @@ flax parameter tree onto these modules.
 ``compute_dtype`` is float32 (default) or bfloat16: activations and
 weights are cast to it at use and the conv blocks accumulate in float32;
 the output is returned in the input's type.
+
+The valid-mask mode (``mask``, [B, H, W] or [B or 1, H, W, 1] of 0 / 1):
+each block's input, its depthwise stage's output and its GELU's output are
+multiplied by the mask, and so are the input and the output of the final
+1x1 conv. Every convolution then sees zeros outside the valid region, as
+'SAME' padding gives the valid crop alone: on a padded canvas the network
+computes the crop's output on the valid region and zeros elsewhere.
 """
 
 from __future__ import annotations
@@ -127,21 +134,31 @@ class SinDDMNet(nn.Module):
         self.l4 = ConvBlock(dim, half_dim, **kw)
         self.final_conv = Conv(1, 1, half_dim, out_dim if out_dim is not None else channels, **kw)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor, scale: Union[float, torch.Tensor]) -> torch.Tensor:
-        return self.run(x, time, scale, conv_block)
+    def forward(self, x: torch.Tensor, time: torch.Tensor, scale: Union[float, torch.Tensor],
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.run(x, time, scale, conv_block, mask)
 
-    def run(self, x, time, scale, block_fn) -> torch.Tensor:
+    def run(self, x, time, scale, block_fn, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The forward pass with every conv block computed by ``block_fn``
         (:func:`conv_block`, its plain version to compare against, or
-        :func:`~sinddm_tpu_torch.ops.conv_block.conv_block_train` to train)."""
+        :func:`~sinddm_tpu_torch.ops.conv_block.conv_block_train` to train),
+        in the valid-mask mode when ``mask`` is given."""
         in_dtype = x.dtype
         dt = self.compute_dtype
         cond = compute_cond_vec(self, time, scale)
         h = x.to(dt).contiguous()
+        kw = {}
+        if mask is not None:
+            mask = mask.to(dt)
+            kw["mask"] = (mask[..., None] if mask.ndim == 3 else mask).contiguous()
         for block in (self.l1, self.l2, self.l3, self.l4):
-            h = block_fn(*block.block_args(h, cond))
+            h = block_fn(*block.block_args(h, cond), **kw)
         fc = self.final_conv
+        if mask is not None:
+            h = h * kw["mask"]
         out = h @ fc.weight.reshape(fc.weight.shape[2:]).to(dt) + fc.bias.to(dt)
+        if mask is not None:
+            out = out * kw["mask"]
         return out.to(in_dtype)
 
 

@@ -36,8 +36,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entries per library: pointers and the stream as void*, sizes as int
 SIGNATURES = {
     "conv_block": {
-        "sinddm_conv_block_f32": [_P] * 10 + [_I] * 6 + [_P],
-        "sinddm_conv_block_bf16": [_P] * 10 + [_I] * 6 + [_P],
+        "sinddm_conv_stage1_f32": [_P] * 4 + [_I] * 6 + [_P],
+        "sinddm_conv_stage1_bf16": [_P] * 4 + [_I] * 6 + [_P],
+        "sinddm_conv_stage2_f32": [_P] * 7 + [_I] * 6 + [_P],
+        "sinddm_conv_stage2_bf16": [_P] * 7 + [_I] * 6 + [_P],
     },
     "dw_conv": {
         "sinddm_dw_conv5x5_f32": [_P] * 5 + [_I] * 5 + [_P],

@@ -7,7 +7,10 @@ Port of ``sinddm_tpu/ops/pallas_conv.py`` (``fused_conv_block`` /
     g   = gelu(conv3x3(h1, W1) + b1)
     out = conv3x3(g, W2) + b2 + (x @ Wres + bres | x)
 
-with every convolution 'SAME' (zero padding). On a CUDA tensor,
+with every convolution 'SAME' (zero padding). With a valid ``mask``
+([B or 1, H, W, 1] of 0 / 1, the denoiser's valid-mask mode), x, h1 and g
+are multiplied by it before they enter a convolution, so a padded canvas
+computes on its valid region what the valid crop alone would. On a CUDA tensor,
 :func:`conv_block` runs three launches: ``h1`` is the depthwise kernel of
 :mod:`sinddm_tpu_torch.ops.dw_conv` (counted there), and the two 3x3
 stages are ``csrc/conv_block.cu`` on the tensor cores, 3xTF32 in float32
@@ -42,14 +45,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd) -> torch.Tensor:
+def _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd, mask=None) -> torch.Tensor:
     """The block's stages as ``F.conv2d`` calls in x's type (the depthwise
     5x5 with ``groups = C``), the depthwise and GELU stages' outputs passed
-    through ``rnd`` before the next product."""
+    through ``rnd`` before the next product, and multiplied by ``mask``
+    when there is one."""
     c = x.shape[-1]
-    xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels-last)
-    h = rnd(F.conv2d(xc, wdw.permute(2, 0, 1)[:, None], bdw, padding=2, groups=c) + cond[:, :, None, None])
-    h = rnd(gelu(F.conv2d(h, w1.permute(3, 2, 0, 1), b1, padding=1)))
+    m = (lambda t: t) if mask is None else (lambda t: t * mask.permute(0, 3, 1, 2))  # noqa: E731
+    xc = m(x.permute(0, 3, 1, 2))  # NCHW view of NHWC memory (channels-last)
+    h = m(rnd(F.conv2d(xc, wdw.permute(2, 0, 1)[:, None], bdw, padding=2, groups=c) + cond[:, :, None, None]))
+    h = m(rnd(gelu(F.conv2d(h, w1.permute(3, 2, 0, 1), b1, padding=1))))
     h = F.conv2d(h, w2.permute(3, 2, 0, 1), b2, padding=1)
     res = xc if wres is None else F.conv2d(xc, wres.t()[:, :, None, None], bres)
     return (h + res).permute(0, 2, 3, 1)
@@ -67,7 +72,7 @@ def conv_block_train(
 
 
 def conv_block_reference(
-    x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres
+    x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, mask=None
 ) -> torch.Tensor:
     """Plain-PyTorch version of :func:`conv_block`, same signature and shapes.
 
@@ -79,7 +84,7 @@ def conv_block_reference(
     dt = x.dtype
     f = lambda t: None if t is None else t.to(dt).float()  # noqa: E731
     out = _block(x.float(), f(cond), f(wdw), f(bdw), f(w1), f(b1), f(w2), f(b2), f(wres), f(bres),
-                 rnd=lambda t: t.to(dt).float())
+                 rnd=lambda t: t.to(dt).float(), mask=f(mask))
     return out.to(dt).contiguous()
 
 
@@ -98,13 +103,15 @@ def conv_block(
     b2: torch.Tensor,  # [Co]
     wres: Optional[torch.Tensor],  # [C, Co], or None for the identity
     bres: Optional[torch.Tensor],  # [Co], or None
+    mask: Optional[torch.Tensor] = None,  # [B or 1, H, W, 1] of 0 / 1, or None
 ) -> torch.Tensor:
     """One conv block, [B, H, W, C] -> [B, H, W, Co].
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
     kernels or raises; it never falls back. Weights are cast to the input
     type (float32, or bfloat16 with float32 accumulation), as the TPU
-    kernel casts them.
+    kernel casts them. With ``mask``, x is multiplied by it on entry and h1
+    and g between the launches.
     """
     global launches
     if x.device.type not in ("cuda", "cpu"):
@@ -128,24 +135,35 @@ def conv_block(
     for name, (t, shape) in expect.items():
         if t is None or tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"{name} must be {shape} on {x.device}")
+    if mask is not None and (mask.ndim != 4 or mask.shape[0] not in (1, b) or tuple(mask.shape[1:]) != (h, w, 1)
+                             or mask.device != x.device):
+        raise ValueError(f"mask must be [{b} or 1, {h}, {w}, 1] on {x.device}, got {tuple(mask.shape)}")
     if b * h * w * max(c, co) >= 2**31:
         raise ValueError(f"activation of {b}x{h}x{w}x{max(c, co)} overflows int32 indexing")
     if x.device.type == "cpu":
-        return conv_block_reference(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres)
+        return conv_block_reference(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, mask)
 
     prep = lambda t: None if t is None else t.to(x.dtype).contiguous()  # noqa: E731
-    cond, wdw, bdw, w1, b1, w2, b2, wres, bres = (
-        prep(t) for t in (cond, wdw, bdw, w1, b1, w2, b2, wres, bres)
+    cond, wdw, bdw, w1, b1, w2, b2, wres, bres, mask = (
+        prep(t) for t in (cond, wdw, bdw, w1, b1, w2, b2, wres, bres, mask)
     )
+    if mask is not None:
+        x = x * mask
     h1 = depthwise_conv5x5(x, wdw, bdw, cond)
     g = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
     out = torch.empty_like(g)
     lib = _build.library("conv_block")
-    err = getattr(lib, f"sinddm_conv_block_{KERNEL_DTYPES[x.dtype]}")(
-        _ptr(h1), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(x), _ptr(wres), _ptr(bres),
-        _ptr(g), _ptr(out), b, h, w, c, co, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, err, "conv_block")
+    dname, dev = KERNEL_DTYPES[x.dtype], x.device.index or 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if mask is not None:
+        h1.mul_(mask)
+    err = getattr(lib, f"sinddm_conv_stage1_{dname}")(_ptr(h1), _ptr(w1), _ptr(b1), _ptr(g), b, h, w, c, co, dev,
+                                                    stream)
+    _build.check(lib, err, "conv_block stage 1")
+    if mask is not None:
+        g.mul_(mask)
+    err = getattr(lib, f"sinddm_conv_stage2_{dname}")(
+        _ptr(g), _ptr(w2), _ptr(b2), _ptr(x), _ptr(wres), _ptr(bres), _ptr(out), b, h, w, c, co, dev, stream)
+    _build.check(lib, err, "conv_block stage 2")
     launches += LAUNCHES_PER_BLOCK
     return out

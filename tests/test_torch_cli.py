@@ -19,7 +19,7 @@ from torch_clip_draws import one_torch_thread  # noqa: F401  (fixture)
 
 # the JAX CLI's flags that the port does not take (the cli module's docstring says why)
 NOT_TAKEN = {"steps_per_chunk", "fused_mode", "precompile", "coordinator", "num_processes", "process_id",
-             "mesh_data", "mesh_spatial", "bucketed_guidance", "guidance_seg_len"}
+             "mesh_data", "mesh_spatial"}
 
 
 @pytest.fixture(scope="module")
@@ -180,7 +180,7 @@ def test_every_mode_keeps_the_jax_flags_and_defaults(mode):
     assert choices(cli.build_parser()) == choices(jax_build_parser())
 
 
-@pytest.mark.parametrize("argv", [["--precompile"], ["--mesh_data", "2"], ["--bucketed_guidance"]])
+@pytest.mark.parametrize("argv", [["--precompile"], ["--mesh_data", "2"], ["--steps_per_chunk", "4"]])
 def test_flags_not_taken_are_refused(argv, capsys):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--mode", "sample"] + argv)

@@ -12,6 +12,8 @@
   another order flips a rounding now and then) carried through the tower
   reach ~1e-2, as far as bf16 lies from fp32; the text tower stays fp32,
   atol 1e-4;
+* ``attn_impl="skip"`` (the vision tower's attention returns v) against the
+  JAX tower with the same setting, atol 1e-4, and unlike the einsum tower;
 * the bicubic resize matrix against ``jax.image.resize``, atol 1e-6;
 * a torch-layout state dict saved to disk loads through ``load_clip``.
 """
@@ -134,6 +136,27 @@ def test_bf16_vision_tower_matches_jax(towers):
         toks = tokenize(TEXTS[:2])
         text = tmod.encode_text(torch.from_numpy(toks).long())
     np.testing.assert_allclose(text.numpy(), np.asarray(jmod.apply(variables, jnp.asarray(toks), method=jmod.encode_text)), atol=1e-4)
+
+
+def test_attn_skip_matches_jax(towers):
+    """The experiment switch: v in place of the attention, in the vision
+    tower only; the text tower keeps its attention."""
+    jcfg, tcfg = _cfgs(dataclasses.replace(jmodel.tiny_clip_config(), attn_impl="skip"))
+    jmod = jmodel.CLIPModel(jcfg)
+    _, variables, tmod32 = towers
+    tmod = clip_from_flax(variables, tcfg, device="cpu")
+    x = np.random.default_rng(5).uniform(0, 1, (2, 32, 48, 3)).astype(np.float32)
+    toks = tokenize(TEXTS[:2])
+    with torch.no_grad():
+        ours = tmod.encode_image(tmodel.clip_normalize(torch.tensor(x)))
+        einsum = tmod32.encode_image(tmodel.clip_normalize(torch.tensor(x)))
+        text, text32 = (m.encode_text(torch.from_numpy(toks).long()) for m in (tmod, tmod32))
+    theirs = jmod.apply(variables, jmodel.clip_normalize(jnp.asarray(x)), method=jmod.encode_image)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-4)
+    assert (ours - einsum).abs().max() > 1e-2
+    torch.testing.assert_close(text, text32)
+    with pytest.raises(ValueError, match="attn_impl"):
+        clip_from_flax(variables, dataclasses.replace(tcfg, attn_impl="flash"), device="cpu")
 
 
 @pytest.mark.parametrize("n_in,n_out", [(7, 9), (7, 10), (4, 6), (4, 3), (7, 7)])

@@ -102,6 +102,32 @@ def test_conv_block_matches_plain(gen, b, h, w, c, co, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c,co,vh,vw,mb", [
+    (2, 11, 20, 3, 80, 7, 13, 2), (1, 10, 90, 80, 160, 10, 61, 1), (2, 9, 64, 160, 160, 5, 64, 1),
+    (1, 6, 20, 90, 90, 6, 9, 1)])
+def test_conv_block_mask_mode_matches_plain(gen, b, h, w, c, co, vh, vw, mb, dtype):
+    """The valid-mask mode: the two 3x3 stages through their own entries, the
+    mask between the launches; against the plain block in the mask mode,
+    and against the block on the valid crop there (with mask batch 1 and B)."""
+    args = _block(gen, b, h, w, c, co, dtype)
+    mask = torch.zeros((mb, h, w, 1), dtype=dtype, device="cuda")
+    mask[:, :vh, :vw] = 1
+    cb.launches = dw.launches = 0
+    out = cb.conv_block(*args, mask=mask)
+    assert (cb.launches, dw.launches) == (cb.LAUNCHES_PER_BLOCK, 1)
+    ref = cb.conv_block_reference(*args, mask=mask)
+    crop = cb.conv_block((args[0] * mask)[:, :vh, :vw].contiguous(), *args[1:])
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, w, co) and out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(out[:, :vh, :vw], crop, atol=2e-4, rtol=2e-4)
+    else:
+        for a, r in ((out, ref), (out[:, :vh, :vw], crop)):
+            assert (a.float() - r.float()).abs().max().item() <= 2e-2 * r.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shifted", ["x", "w1", "wres"])
 def test_conv_block_copy_and_plain_staging_agree(gen, shifted, dtype):
     """A tensor 16-byte aligned with a channel count the copies take is

@@ -4,7 +4,9 @@
   ``guided_check_spread.py`` or ``kernel_times.py``, imports JAX,
   flax, optax, orbax, the third-party ``regex`` or the JAX package.
 * Every entry point runs on ``cuda`` unless given ``device="cpu"``: on
-  this CUDA-less build each raises instead of running on the CPU.
+  this CUDA-less build each raises instead of running on the CPU (the
+  bucketed walk, its via-scale sampler and the metric extractors among
+  them).
 * ``chip_smoke.py``, ``guided_check_spread.py`` and ``kernel_times.py``
   fail, printing no result, where there is no card.
 """
@@ -24,9 +26,12 @@ from sinddm_tpu_torch.apps.clip_apps import clip_sampling
 from sinddm_tpu_torch.apps.i2i import image2image
 from sinddm_tpu_torch.apps.roi import roi_guided_sampling
 from sinddm_tpu_torch.apps.sampling import sample_scales
+from sinddm_tpu_torch.diffusion.bucketed import sample_via_scale_bucketed
 from sinddm_tpu_torch.diffusion.core import sample_scale0
 from sinddm_tpu_torch.guidance.roi import make_roi_guidance
 from sinddm_tpu_torch.guidance.clip_guidance import init_clip_carry
+from sinddm_tpu_torch.metrics import conv_feature_extractor
+from sinddm_tpu_torch.models.inception import STEM_SPEC, inception_params_from_state_dict, random_inception_params
 from sinddm_tpu_torch.models.clip.convert import clip_from_state_dict, random_clip_params, random_clip_state_dict
 from sinddm_tpu_torch.models.clip.model import tiny_clip_config
 from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
@@ -62,7 +67,9 @@ def test_scan_sees_the_whole_package():
             "sinddm_tpu_torch/guidance/clip_extractor.py", "sinddm_tpu_torch/guidance/clip_guidance.py",
             "sinddm_tpu_torch/apps/clip_apps.py", "sinddm_tpu_torch/ops/image.py", "sinddm_tpu_torch/apps/i2i.py",
             "sinddm_tpu_torch/guidance/roi.py", "sinddm_tpu_torch/apps/roi.py",
-            "sinddm_tpu_torch/utils/profiling.py"} <= names
+            "sinddm_tpu_torch/utils/profiling.py", "sinddm_tpu_torch/diffusion/bucketed.py",
+            "sinddm_tpu_torch/metrics.py", "sinddm_tpu_torch/models/inception.py", "sinddm_tpu_torch/utils/flops.py",
+            "sinddm_tpu_torch/ops/augment_extra.py"} <= names
 
 
 def test_tokenizer_reads_its_own_table_with_the_standard_library():
@@ -89,6 +96,16 @@ ENTRY_POINTS = {
     "random_clip_params": lambda: random_clip_params(tiny_clip_config()),
     "clip_from_state_dict": lambda: clip_from_state_dict(random_clip_state_dict(tiny_clip_config()), tiny_clip_config()),
     "clip_sampling": lambda: _clip_sampling_without_device(),
+    "clip_sampling_bucketed": lambda: _clip_sampling_without_device(bucketed=True),
+    "sample_via_scale_bucketed": lambda: sample_via_scale_bucketed(
+        lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), torch.zeros((1, 11, 11, 3)),
+        prev_valid_hw=(8, 8), cur_valid_hw=(11, 11), s=1, total_t=2),
+    "conv_feature_extractor": lambda: conv_feature_extractor(),
+    "random_inception_params": lambda: random_inception_params(),
+    "inception_params_from_state_dict": lambda: inception_params_from_state_dict({
+        f"{name}.{k}": np.zeros((co, 1, 1, 1) if k == "conv.weight" else (co,), np.float32)
+        for name, _, _, _, co in STEM_SPEC
+        for k in ("conv.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var")}),
     "image2image": lambda: image2image(lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), _cpu_pyramid(),
                                        np.zeros((8, 8, 3), np.float32), mode="style_transfer", batch_size=1),
     "roi_guided_sampling": lambda: roi_guided_sampling(
@@ -110,14 +127,15 @@ def _cpu_pyramid():
                    rescale_losses=(0.5,), scale_factor=1.411, n_scales=2)
 
 
-def _clip_sampling_without_device():
+def _clip_sampling_without_device(bucketed=False):
     """A CPU tower, schedules and pyramid, but no ``device``: the walk itself
     must reach for the card."""
     from sinddm_tpu_torch.guidance.clip_extractor import ClipExtractor
 
     ex = ClipExtractor(random_clip_params(tiny_clip_config(), device="cpu"), n_aug=1)
     return clip_sampling(lambda x, t, s: x, make_schedules(device="cpu", **_CPU_SCHED), _cpu_pyramid(), ex,
-                         text_input="x", strength=0.3, sample_batch_size=1, guidance_sub_iters=[0, 1])
+                         text_input="x", strength=0.3, sample_batch_size=1, guidance_sub_iters=[0, 1],
+                         bucketed=bucketed)
 
 
 def _cli_without_device(tmp_path, mode="sample"):
