@@ -97,12 +97,27 @@ each of which exits non-zero when it fails:
    iteration and two guided steps with kernels 7 and 6 against the
    matrix-product warp; the vision tower's attention share (one iteration
    with ``attn_impl="skip"``); the SIFID feature maps (conv proxy, Inception
-   stem, CLIP tokens and patch embedding) on the card against the CPU.
+   stem, CLIP tokens and patch embedding) on the card against the CPU;
+11. the ('data', 'spatial') mesh (``sinddm_tpu_torch/parallel``): worker
+   processes of the port (``chip_smoke.py --mesh-worker``) share the card
+   as a world of two ranks over gloo (NCCL takes one rank a card), once as
+   ``data=2`` and once as ``spatial=2``, each against the single process on
+   the same seeds, computed here: (a) phase 5's B=16 walk, with the walls,
+   the gather's time a denoiser call and summed over one more split walk
+   (CUDA events) and the launches of kernels 1 and 2 per rank; (b) three train steps at dim 160, batch 32 (s
+   = 0, 4, 4): the losses and the parameters against the single process's,
+   the parameters bit-equal across ranks, and a batch-8 step against
+   float64 at s = 0 and 4; (c) under ``data=2``, one guidance iteration at
+   batch 16 and a batch-4 ``clip_content`` walk (launches of kernels 1, 2,
+   6, 7 per rank), held by ``walk_stats`` beside the single walk against
+   itself and a control on other draws; (d) ``--mode sample --mesh_data 2``
+   through the CLI on two processes against one; (e) a one-rank NCCL world
+   on the card running the port's gather and gradient all-reduce.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``; the ``[paths]`` line
 before them holds the walks' times (phase 9's under ``i2i_roi``, phase 10's
-under ``bucketed``).
+under ``bucketed``, phase 11's under ``mesh``).
 
 Tolerances (max |kernel - plain| against the plain version's values):
   * fp32 conv block: atol 2e-4 + rtol 2e-4 per element -- the kernel sums
@@ -139,6 +154,15 @@ Tolerances (max |kernel - plain| against the plain version's values):
     taken over the valid region, x and the mask exactly 0 outside it;
   * the SIFID feature maps on the card against the CPU (TF32 off): 1e-4 of
     max |feature|, the SIFID of two samples within 1e-3 relative;
+  * phase 11, a world against the single process on the same seeds: the
+    walk 2e-3 absolute (the batch-2 walk's bound; it read 0.0), every rank
+    equal; a train step's loss TRAIN_LOSS_TOL relative, the parameters after
+    two steps within 1e-2 lr for all but TRAIN_UPDATE_SHARE of the elements,
+    bit-equal across ranks after three, the step against float64 phase 8's
+    bounds; the guidance iteration the GUIDE bounds; the batch-4 guided walk
+    the MESH_WALK bounds, which the single walk against itself must hold and
+    a control on other draws must break; the CLI's PNGs within one 8-bit
+    level, one set, from the primary alone;
   * view-warp kernels against ``bilinear_sample_mm`` (TF32 off): value atol
     1e-5, image gradient 1e-5 of max |gradient| -- the same fp32 products in
     another order, the adjoint's atomics in an order that changes per run;
@@ -253,6 +277,17 @@ I2I_WH = (300, 200)
 MASK_BOX = (slice(60, 120), slice(110, 190))
 START_T = {"harmonization": 5, "style_transfer": 15}
 ROI_TARGET, ROI_BBS = (40, 60, 60, 80), ((10, 10, 50, 70), (110, 150, 60, 80))
+# phase 11: the worlds (name, data, spatial), two ranks on the one card; the
+# guided walk's batch and seed (its control takes the next seed) and the
+# checks of a walk on the same draws against the single process's (finest
+# share of elements over 0.1, least per-sample cosine, clip-score relative
+# difference: over 3 inputs of guided_check_spread.py --mesh_walks and one
+# run of phase 11 on an H100, the batch-4 clip_content walk against itself
+# read <= 0.070, >= 0.9940, <= 3.1e-4, split over data 0.071, 0.9942,
+# 3.2e-4, a walk on other draws >= 0.447, <= 0.842, >= 1.98e-2)
+MESH_WORLDS = (("data", 2, 1), ("spatial", 1, 2))
+MESH_GUIDED_BATCH, MESH_WALK_SEED = 4, 30
+MESH_WALK_SHARE, MESH_WALK_COS, MESH_WALK_SCORE_REL = 0.2, 0.98, 5e-3
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
@@ -512,16 +547,12 @@ def synthetic_dataset():
     size, 248x186. Returns (handle, the data folder)."""
     import tempfile
 
-    import numpy as np
-    from PIL import Image
-
     work = ROOT / "build"
     work.mkdir(exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=work)
     data = Path(tmp.name) / "data"
     data.mkdir()
-    rng = np.random.default_rng(0)
-    Image.fromarray(rng.integers(0, 256, BALLOONS_WH[::-1] + (3,), dtype=np.uint8)).save(data / "synthetic.png")
+    synthetic_image(data)
     return tmp, data
 
 
@@ -914,11 +945,12 @@ def profile_train_step(run):
 
 
 def guided_walk(model, sched, pyramid, clip_model, batch, seed, mode_cfg, *, bucketed,
-                warp_impl=None, custom_t_list=None, record=None, replay=None):
+                warp_impl=None, custom_t_list=None, record=None, replay=None, sharding=None):
     """One guided walk (``clip_sampling``) at ``batch`` from a generator seeded
     with ``seed``; with ``record`` (an empty list) its noise and loss draws are
-    kept there, with ``replay`` (such a list) they are taken from it. Returns
-    (outputs, aux, wall seconds ending in a synchronize)."""
+    kept there, with ``replay`` (such a list) they are taken from it; split
+    over a mesh with ``sharding``. Returns (outputs, aux, wall seconds ending
+    in a synchronize)."""
     from sinddm_tpu_torch.apps.clip_apps import clip_sampling
     from sinddm_tpu_torch.guidance import clip_extractor as ce
 
@@ -938,7 +970,7 @@ def guided_walk(model, sched, pyramid, clip_model, batch, seed, mode_cfg, *, buc
     t0 = time.perf_counter()
     outs, aux = clip_sampling(model, sched, pyramid, ex, sample_batch_size=batch, stop_guidance=STOP_GUIDANCE,
                               reblurring=False, bucketed=bucketed, custom_t_list=custom_t_list,
-                              generator=g, device="cuda", **mode_cfg, **kw)
+                              generator=g, sharding=sharding, device="cuda", **mode_cfg, **kw)
     torch.cuda.synchronize()
     return outs, aux, time.perf_counter() - t0
 
@@ -1225,6 +1257,417 @@ def bucketed_phase(model, sched, pyramid, clip_model, mode_cfg, per_scale) -> di
         if not ok:
             fail(f"the {name} features on the card disagree with the CPU")
         out["metrics"][name] = {"features_rel": rel, "sifid": d_card}
+    return out
+
+
+def mesh_objects():
+    """Phase 5's objects, made anew from their seeds (a worker of phase 11
+    builds them as the parent does): the balloons geometry, schedules, the
+    dim-160 denoiser on seed 0, phase 6's pyramid and mode, the walk's
+    arguments."""
+    from sinddm_tpu_torch.apps.clip_apps import clip_mode_config
+    from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
+    from sinddm_tpu_torch.pyramid import Pyramid, compute_pyramid_geometry
+    from sinddm_tpu_torch.schedules import make_schedules
+
+    _, sizes_wh, factor, n = compute_pyramid_geometry(BALLOONS_WH)
+    sizes_hw = [(h, w) for (w, h) in sizes_wh]
+    sched = make_schedules(timesteps=100, scale_losses=BALLOONS_LOSSES, n_scales=n, device="cuda")
+    model = denoiser_from_flax(random_flax_params(dim=DIM, seed=0), device="cuda")
+    pyramid = Pyramid(sizes_hw=tuple(sizes_hw), sizes_wh=tuple(sizes_wh), images=(), recon_images=(),
+                      rescale_losses=BALLOONS_LOSSES, scale_factor=factor, n_scales=n)
+    mode_cfg = clip_mode_config("clip_content", "Fire in the Forest", STRENGTH, FILL_FACTOR, n)
+    walk = dict(scale_factor=factor, n_scales=n, custom_sample=True, device="cuda")
+    return model, sched, sizes_hw, pyramid, mode_cfg, walk
+
+
+def launch_counts():
+    from sinddm_tpu_torch.ops import conv_block as cb, dw_conv as dw, warp_sample as ws
+
+    return {"conv_block": cb.launches, "dw_conv": dw.launches, "winx_fwd": ws.launches["winx_fwd"],
+            "win_bwd": ws.launches["win_bwd"]}
+
+
+def reset_launches():
+    from sinddm_tpu_torch.ops import conv_block as cb, dw_conv as dw, warp_sample as ws
+
+    cb.launches = dw.launches = 0
+    ws.reset_launches()
+
+
+def mesh_walk(model, sched, sizes_hw, walk, sharding=None):
+    """Phase 5's B=16 walk (seed 0): (outputs, wall seconds, launches)."""
+    from sinddm_tpu_torch.apps.sampling import sample_scales
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = sample_scales(model, sched, sizes_hw, batch_size=BATCH, generator=torch.Generator(device="cuda").manual_seed(0),
+                         sharding=sharding, **walk)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, launch_counts()
+
+
+def mesh_train(tmp_dir, mesh=None) -> dict:
+    """Three train steps at dim 160, batch TRAIN_BATCH on phase 8's seeded
+    image (s = 0, the finest, the finest), with the parameters after the
+    second and the third; and, under a mesh, one step at batch
+    TRAIN_CHECK_BATCH against float64 at the coarsest and the finest scale."""
+    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
+    from sinddm_tpu_torch.models.denoiser import SinDDMNet
+    from sinddm_tpu_torch.pyramid import build_pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer, step_vs_float64
+
+    pyramid = build_pyramid(str(synthetic_image(tmp_dir)))
+    n = pyramid.n_scales
+    sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=n, device="cuda")
+    tr = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid, TrainConfig(train_batch_size=TRAIN_BATCH),
+                           DiffusionConfig(), Path(tmp_dir) / "train", seed=0, device="cuda", mesh=mesh)
+    snap = lambda: {k: v.detach().clone() for k, v in tr.model.state_dict().items()}  # noqa: E731
+    out = {"losses": [], "ms": []}
+    for i, s in enumerate((0, n - 1, n - 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(tr.train_step(s=s))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i >= 1:
+            out[f"p{i + 1}"] = snap()
+    out["lr"] = tr.opt.param_groups[0]["lr"]
+    if mesh is not None:
+        out["vs_float64"] = {}
+        for s in (0, n - 1):
+            check = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid,
+                                      TrainConfig(train_batch_size=TRAIN_CHECK_BATCH), DiffusionConfig(),
+                                      Path(tmp_dir) / "check", seed=0, device="cuda", mesh=mesh)
+            gen = torch.Generator(device="cuda").manual_seed(s)
+            x_orig = check.data_list[s][0]
+            t = torch.randint(0, sched.num_timesteps_trained[s], (TRAIN_CHECK_BATCH,), generator=gen, device="cuda")
+            noise = torch.randn((TRAIN_CHECK_BATCH,) + tuple(x_orig.shape[1:]), generator=gen, device="cuda")
+            out["vs_float64"][s] = step_vs_float64(check, s, [t], [noise])
+            del check
+    return out
+
+
+def synthetic_image(folder) -> Path:
+    """``synthetic_dataset``'s seeded 248x186 image, written into ``folder``."""
+    import numpy as np
+    from PIL import Image
+
+    path = Path(folder) / "synthetic.png"
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, BALLOONS_WH[::-1] + (3,), dtype=np.uint8)).save(path)
+    return path
+
+
+def mesh_guidance(clip_model, mode_cfg, pyramid, model, sched, sharding=None) -> dict:
+    """One guidance iteration at batch 16, full width (seeded x and draws),
+    and the batch-MESH_GUIDED_BATCH ``clip_content`` walk on seed
+    MESH_WALK_SEED."""
+    from sinddm_tpu_torch.guidance import clip_extractor as ce
+    from sinddm_tpu_torch.guidance.clip_guidance import clip_loss_and_grad
+
+    h_fin, w_fin = BALLOONS_SIZES_HW[-1]
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    ex = ce.ClipExtractor(clip_model, n_aug=N_AUG, view_chunk=VIEW_CHUNK, generator=gen)
+    text = ex.get_text_embedding(mode_cfg["text_input"], ce.get_augmentations_template("hr"))
+    x01 = torch.rand((BATCH, h_fin, w_fin, 3), generator=gen, device="cuda")
+    draws = ex.draw(BATCH, text.shape[0])
+    reset_launches()
+    with torch.no_grad():
+        loss, grad = clip_loss_and_grad(ex, x01, text, draws, sharding)
+    torch.cuda.synchronize()
+    out = {"loss": loss, "grad": grad, "iteration_launches": launch_counts()}
+    reset_launches()
+    outs, aux, wall = guided_walk(model, sched, pyramid, clip_model, MESH_GUIDED_BATCH, MESH_WALK_SEED, mode_cfg,
+                                  bucketed=False, sharding=sharding)
+    out["walk"] = (outs, [a if a is None else {"clip_score": a["clip_score"], "n_guided": a["n_guided"]}
+                          for a in aux], wall)
+    out["walk_launches"] = launch_counts()
+    return out
+
+
+def mesh_worker(argv) -> None:
+    """One rank of phase 11: ``chip_smoke.py --mesh-worker PORT RANK DATA
+    SPATIAL OUT_DIR``. Joins the world (two ranks on one card: gloo), runs
+    the unguided walk, the train steps and, with data > 1, the guidance
+    checks, each split over the mesh, and writes what it measured to
+    ``OUT_DIR/rank{RANK}.pt``."""
+    import tempfile
+
+    port, rank, data, spatial = (int(v) for v in argv[:4])
+    out_dir = Path(argv[4])
+    sys.path.insert(0, str(ROOT))
+    from sinddm_tpu_torch.models.clip.convert import random_clip_params
+    from sinddm_tpu_torch.models.clip.model import VIT_B_32
+    from sinddm_tpu_torch.parallel import distributed, mesh as mesh_module
+    from sinddm_tpu_torch.parallel.mesh import batch_sharding, gather_block, make_mesh, split_range
+
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 leaves it in the parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{port}", data * spatial, rank, device="cuda")
+    try:
+        distributed.build_kernels_once()
+        mesh = make_mesh(spatial=spatial, data=data)
+        sharding = batch_sharding(mesh)
+        model, sched, sizes_hw, pyramid, mode_cfg, walk = mesh_objects()
+        res = {"runtime": distributed.runtime()._asdict(), "coords": mesh.coords}
+        mesh_walk(model, sched, sizes_hw, walk, sharding)  # warm: cuDNN, the allocator
+        distributed.barrier()
+        outs, wall, launches = mesh_walk(model, sched, sizes_hw, walk, sharding)
+        res["walk"] = {"outs": outs, "wall_s": wall, "launches": launches}
+        # every gather of one more split walk, each between two CUDA events
+        # (a walk of its own, so that the events stay out of the wall above)
+        events = []
+
+        def timed_gather(*args):
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            result = gather_block(*args)
+            pair[1].record()
+            events.append(pair)
+            return result
+
+        mesh_module.gather_block = timed_gather
+        try:
+            mesh_walk(model, sched, sizes_hw, walk, sharding)
+        finally:
+            mesh_module.gather_block = gather_block
+        torch.cuda.synchronize()
+        res["walk_gathers"] = {"calls": len(events), "ms": sum(a.elapsed_time(b) for a, b in events)}
+        # the gather of one finest-scale denoiser call: this rank's block of 16x186x248x3
+        h_fin, w_fin = sizes_hw[-1]
+        (b0, b1), (r0, r1) = (split_range(n, *sharding.parts(i)) for i, n in enumerate((BATCH, h_fin)))
+        block = torch.randn((b1 - b0, r1 - r0, w_fin, 3), device="cuda")
+        distributed.barrier()
+        res["gather_ms"] = time_ms(lambda: gather_block(block, (BATCH, h_fin, w_fin, 3),
+                                                        (slice(b0, b1), slice(r0, r1)), mesh.group("data", "spatial")),
+                                   reps=20)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            res["train"] = mesh_train(tmp, mesh)
+        if data > 1:
+            clip_model = random_clip_params(VIT_B_32, seed=0, device="cuda")
+            res["guided"] = mesh_guidance(clip_model, mode_cfg, pyramid, model, sched, sharding)
+        torch.save(res, out_dir / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(tag, argvs, timeout) -> list:
+    """Start one process per argv together, wait for all (killing the rest
+    when one overruns), echo each one's output under ``tag``; fail if any
+    exits non-zero. Returns their outputs."""
+    procs = [subprocess.Popen(a, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines()[-40:]:
+            say(f"[{tag} rank {r}] {line}")
+        if p.returncode != 0:
+            fail(f"{tag}: rank {r} exited {p.returncode}")
+    return texts
+
+
+def mesh_phase() -> dict:
+    """Phase 11: the ('data', 'spatial') mesh. Two worker processes of the
+    port share the card over gloo; each check holds the world against the
+    single process, computed here on the same seeds."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from sinddm_tpu_torch.models.clip.convert import random_clip_params
+    from sinddm_tpu_torch.models.clip.model import VIT_B_32
+    from sinddm_tpu_torch.parallel import distributed
+    from sinddm_tpu_torch.parallel.mesh import gather_block
+
+    t_phase = time.perf_counter()
+    model, sched, sizes_hw, pyramid, mode_cfg, walk = mesh_objects()
+    clip_model = random_clip_params(VIT_B_32, seed=0, device="cuda")
+    out = {}
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=work)
+    base = Path(tmp.name)
+
+    # the single process, on the workers' seeds
+    mesh_walk(model, sched, sizes_hw, walk)
+    single_outs, single_wall, single_launches = mesh_walk(model, sched, sizes_hw, walk)
+    (base / "single").mkdir()
+    single_train = mesh_train(base / "single")
+    single_guided = mesh_guidance(clip_model, mode_cfg, pyramid, model, sched)
+    controls = {
+        "single again": guided_walk(model, sched, pyramid, clip_model, MESH_GUIDED_BATCH, MESH_WALK_SEED, mode_cfg,
+                                    bucketed=False),
+        "control, other draws": guided_walk(model, sched, pyramid, clip_model, MESH_GUIDED_BATCH,
+                                            MESH_WALK_SEED + 1, mode_cfg, bucketed=False),
+    }
+    torch.cuda.empty_cache()
+
+    worlds = {}
+    for name, data, spatial in MESH_WORLDS:
+        folder = base / name
+        folder.mkdir()
+        port = free_port()
+        t0 = time.perf_counter()
+        spawn_world(f"mesh {name}", [[sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker", str(port), str(r),
+                                      str(data), str(spatial), str(folder)] for r in range(data * spatial)], 600)
+        worlds[name] = [torch.load(folder / f"rank{r}.pt", map_location="cuda", weights_only=False)
+                        for r in range(data * spatial)]
+        say(f"[mesh {name}] world of {data * spatial} ranks ({data} x {spatial}): {time.perf_counter() - t0:.1f} s "
+            f"from spawn to exit; runtime {[w['runtime'] for w in worlds[name]]}")
+
+    # (a) the unguided walk
+    out["walk"] = {"single_wall_s": single_wall}
+    for name, ranks in worlds.items():
+        diffs = [max((a - b).abs().max().item() for a, b in zip(r["walk"]["outs"], single_outs)) for r in ranks]
+        same = all(torch.equal(a, b) for r in ranks[1:] for a, b in zip(r["walk"]["outs"], ranks[0]["walk"]["outs"]))
+        launches = [r["walk"]["launches"] for r in ranks]
+        ok = max(diffs) <= 2e-3 and same and all(lc == single_launches for lc in launches)
+        say(f"[check mesh walk {name} batch {BATCH} dim {DIM}] max |world - single| by rank {diffs} (atol 2e-3), "
+            f"ranks equal {same}; wall_s by rank {[round(r['walk']['wall_s'], 3) for r in ranks]} beside the "
+            f"single process's {single_wall:.3f} (two ranks share one card: not a scaling number); gather ms a "
+            f"denoiser call by rank {[round(r['gather_ms'], 3) for r in ranks]} (CUDA events, 16x186x248x3 fp32 "
+            f"all-reduce over gloo); all gathers of a split walk by rank "
+            f"{[(r['walk_gathers']['calls'], round(r['walk_gathers']['ms'], 1)) for r in ranks]} (calls, ms; CUDA "
+            f"events, a walk of their own); launches by rank {launches} (single {single_launches}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the {name} walk is off the single process's, or its ranks disagree, or a kernel was not launched")
+        out["walk"][name] = {"max_abs": max(diffs), "wall_s": [r["walk"]["wall_s"] for r in ranks],
+                             "gather_ms": [r["gather_ms"] for r in ranks],
+                             "walk_gathers": [r["walk_gathers"] for r in ranks], "launches": launches}
+
+    # (b) the train steps
+    out["train"] = {"single_ms": single_train["ms"]}
+    lr = single_train["lr"]
+    for name, ranks in worlds.items():
+        tr = ranks[0]["train"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"], single_train["losses"]))
+        change = torch.cat([((tr["p2"][k] - single_train["p2"][k]).abs() / lr).flatten() for k in tr["p2"]])
+        share = share_over(change, 1e-2)
+        bit_equal = all(torch.equal(r["train"]["p3"][k], tr["p3"][k]) for r in ranks[1:] for k in tr["p3"])
+        f64 = {s: max((r["train"]["vs_float64"][s] for r in ranks), key=lambda e: e["grad_rel"])
+               for s in tr["vs_float64"]}
+        f64_ok = all(e["loss_rel"] <= TRAIN_LOSS_TOL and e["grad_rel"] <= TRAIN_GRAD_TOL
+                     and e["change_share"] <= TRAIN_UPDATE_SHARE for e in f64.values())
+        ok = loss_rel <= TRAIN_LOSS_TOL and share <= TRAIN_UPDATE_SHARE and bit_equal and f64_ok
+        say(f"[check mesh train {name} dim {DIM} batch {TRAIN_BATCH}, s = 0, 4, 4] loss rel to the single process "
+            f"{loss_rel:.3e} (<= {TRAIN_LOSS_TOL:g}); parameters after two steps: largest difference "
+            f"{change.max().item():.3e} lr, share over 1e-2 lr {share:.3e} (<= {TRAIN_UPDATE_SHARE:g}); after three "
+            f"steps bit-equal across ranks {bit_equal}; step ms by rank {[[round(v, 1) for v in r['train']['ms']] for r in ranks]} "
+            f"(single {[round(v, 1) for v in single_train['ms']]}); one step at batch {TRAIN_CHECK_BATCH} vs float64: "
+            + "; ".join(f"s={s} loss rel {e['loss_rel']:.3e} max|dg|/max|g| {e['grad_rel']:.3e} (<= {TRAIN_GRAD_TOL:g}) "
+                        f"change share {e['change_share']:.3e}" for s, e in f64.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the {name} world's train steps are off the single process's or float64's, or its ranks disagree")
+        out["train"][name] = {"loss_rel": loss_rel, "change_max_lr": change.max().item(), "change_share": share,
+                              "vs_float64": f64, "ms": [r["train"]["ms"] for r in ranks]}
+
+    # (c) guidance, data = 2
+    ranks = worlds["data"]
+    for r_i, r in enumerate(ranks):
+        ok, _, summary = iteration_check(f"check mesh guidance iteration data rank {r_i} vs single", r["guided"]["loss"],
+                                         r["guided"]["grad"], single_guided["loss"], single_guided["grad"],
+                                         extra=f"launches {r['guided']['iteration_launches']} ")
+        if not ok:
+            fail(f"the guidance iteration split over data is off the single process's: {summary}")
+    ref = single_guided["walk"]
+    stats = {"world (rank 0)": walk_stats(ranks[0]["guided"]["walk"], ref),
+             **{k: walk_stats(v, ref) for k, v in controls.items()}}
+    held = lambda r: (r["share_over_0.1"] <= MESH_WALK_SHARE and r["cosine"] >= MESH_WALK_COS  # noqa: E731
+                      and r["score_rel"] <= MESH_WALK_SCORE_REL)
+    for k, r in stats.items():
+        say(f"[check mesh clip_content batch {MESH_GUIDED_BATCH}, {k} vs single] finest share over 0.1 "
+            f"{r['share_over_0.1']:.4f} (<= {MESH_WALK_SHARE}) least per-sample cosine {r['cosine']:.6f} "
+            f"(>= {MESH_WALK_COS}) clip score relative {r['score_rel']:.3e} (<= {MESH_WALK_SCORE_REL}) "
+            f"{'held' if held(r) else 'not held'}")
+    w_launch = [r["guided"]["walk_launches"] for r in ranks]
+    walls = [r["guided"]["walk"][2] for r in ranks]
+    say(f"[mesh clip_content walk] wall_s by rank {[round(v, 3) for v in walls]} beside the single process's "
+        f"{ref[2]:.3f}; launches by rank {w_launch} (single {single_guided['walk_launches']})")
+    if not (held(stats["world (rank 0)"]) and held(stats["single again"])) or held(stats["control, other draws"]):
+        fail("the clip_content walk split over data is off the single process's, or the control on other draws is not")
+    if any(lc != single_guided["walk_launches"] for lc in w_launch):
+        fail(f"a rank's guided-walk launches {w_launch} differ from the single walk's {single_guided['walk_launches']}")
+    out["guided"] = {"walk": stats, "wall_s": walls, "single_wall_s": ref[2], "launches": w_launch}
+
+    # (d) the CLI: --mode sample --mesh_data 2 on two processes against one
+    data = base / "cli_data"
+    data.mkdir()
+    synthetic_image(data)
+    argv = ["--mode", "sample", "--dataset_folder", str(data), "--image_name", "synthetic.png", "--dim", str(DIM)]
+    _, cli_wall, _, _ = run_cli("mesh cli single", argv + ["--results_folder", str(base / "cli_single")])
+    port = free_port()
+    t0 = time.perf_counter()
+    texts = spawn_world("mesh cli", [[sys.executable, "-m", "sinddm_tpu_torch.cli", *argv, "--results_folder",
+                                      str(base / "cli_world"), "--coordinator", f"127.0.0.1:{port}",
+                                      "--num_processes", "2", "--process_id", str(r), "--mesh_data", "2"]
+                                     for r in range(2)], 600)
+    world_wall = time.perf_counter() - t0
+    unstamped = lambda p: re.sub(r"_sample_[^/]+?(\.png$|/)", r"_sample\1", p)  # noqa: E731
+    files = {k: sorted((p.relative_to(base / k / "forest").as_posix() for p in (base / k / "forest").rglob("*.png")),
+                       key=unstamped) for k in ("cli_single", "cli_world")}
+    worst = max(int(np.abs(np.asarray(Image.open(base / "cli_single" / "forest" / a), np.int16)
+                           - np.asarray(Image.open(base / "cli_world" / "forest" / b), np.int16)).max())
+                for a, b in zip(files["cli_single"], files["cli_world"]))
+    ok = (list(map(unstamped, files["cli_single"])) == list(map(unstamped, files["cli_world"]))
+          and len(files["cli_single"]) == len(sizes_hw) + BATCH and worst <= 1
+          and "saved 5 scales" in texts[0] and "saved" not in texts[1] and "backend gloo" in texts[0])
+    say(f"[check mesh cli --mode sample --mesh_data 2] files {len(files['cli_world'])} from the primary alone, the "
+        f"single process's names {list(map(unstamped, files['cli_single'])) == list(map(unstamped, files['cli_world']))}; "
+        f"largest 8-bit difference {worst} (<= 1: the walk's 2e-3 on [-1, 1] may round a value the other way); "
+        f"wall_s single {cli_wall:.3f} (in this process), world {world_wall:.3f} (two processes from spawn to exit) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the two-process CLI's files are not the single process's")
+    out["cli"] = {"worst_u8": worst, "single_wall_s": cli_wall, "world_wall_s": world_wall}
+
+    # (e) NCCL: a one-rank world on the card runs the gather and the
+    # gradient all-reduce the port uses
+    if not distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda"):
+        fail("a one-rank world did not start")
+    try:
+        import torch.distributed as dist
+
+        backend = distributed.runtime().backend
+        x = torch.randn((BATCH,) + tuple(sizes_hw[-1]) + (3,), generator=torch.Generator(device="cuda").manual_seed(3),
+                        device="cuda")
+        gathered = gather_block(x, x.shape, (slice(0, BATCH),), dist.group.WORLD)
+        flat = torch.randn(1_000_000, device="cuda")
+        summed = flat.clone()
+        dist.all_reduce(summed)
+        ms = time_ms(lambda: gather_block(x, x.shape, (slice(0, BATCH),), dist.group.WORLD), reps=20)
+        ok = backend == "nccl" and torch.equal(gathered, x) and torch.equal(summed, flat)
+        say(f"[check mesh nccl] one-rank world backend {backend}: the gather of 16x186x248x3 and a gradient "
+            f"all-reduce return their input {'ok' if ok else 'FAIL'}; gather ms {ms:.3f} (CUDA events)")
+        if not ok:
+            fail("the one-rank NCCL world does not run the port's collectives")
+        out["nccl"] = {"backend": backend, "gather_ms": ms}
+    finally:
+        distributed.shutdown()
+    tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[mesh] phase 11 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -1851,7 +2294,11 @@ def main() -> None:
     # ---- 10. the bucketed guided walk ----------------------------------------------
     results["bucketed"] = bucketed_phase(model, sched, pyramid, clip_model, mode_cfg, per_scale)
 
-    # ---- 11. records ----------------------------------------------------------
+    # ---- 11. the mesh ---------------------------------------------------------------
+    torch.cuda.empty_cache()
+    results["mesh"] = mesh_phase()
+
+    # ---- records ---------------------------------------------------------------
     replaces = {
         "conv_block": "sinddm_tpu/ops/pallas_conv.py:234",
         "dw_conv": "sinddm_tpu/ops/pallas_dw.py:93",
@@ -1885,7 +2332,7 @@ def main() -> None:
         "clip_roi_iteration": results["roi_iteration"], "bf16_tower_vs_fp32": results["bf16_tower"],
         "win3_vs_exact": results["win3_vs_exact"], "win3_iteration_vs_exact": results["win3_iteration"],
         "warp_adjoints_256_views": results["warp_256_views"], "train": results["train"],
-        "i2i_roi": results["i2i_roi"], "bucketed": results["bucketed"],
+        "i2i_roi": results["i2i_roi"], "bucketed": results["bucketed"], "mesh": results["mesh"],
     }))
     say(f"[done] total_s {time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))
@@ -1895,4 +2342,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

@@ -21,13 +21,15 @@ default) against the plain warp (``mm``):
 With ``--walks K`` it also measures phase 10's walk checks over K inputs
 (new draws each): a batch-2 ``clip_style_trans`` walk bucketed against
 per-scale on the same draws, the per-scale walk against itself, and a
-control on other draws (which must break the bounds).
+control on other draws (which must break the bounds). With
+``--mesh_walks K``, phase 11's: the batch-4 ``clip_content`` walk against
+itself on the same seed, and a control on another seed.
 
 It prints one line an input, then for each quantity its least, median and
 largest value and the number of inputs past each bound chip_smoke.py has
 held it to. Needs one CUDA card and nvcc, as chip_smoke.py does:
 
-    python3 guided_check_spread.py [--inputs 40] [--walks 0]
+    python3 guided_check_spread.py [--inputs 40] [--walks 0] [--mesh_walks 0]
 """
 
 from __future__ import annotations
@@ -56,12 +58,15 @@ BOUNDS = {
 WALK_BOUNDS = {"share_over_0.1": ("WALK_SHARE", "max"), "cosine": ("WALK_COS", "min"),
                "score_rel": ("WALK_SCORE_REL", "max")}
 WALK_PAIRS = ("style_trans bucketed", "style_trans repeat", "style_trans control")
+# phase 11's (chip_smoke.py MESH_WALK_*)
+MESH_WALK_PAIRS = ("content repeat", "content control")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--inputs", type=int, default=40)
     parser.add_argument("--walks", type=int, default=0)
+    parser.add_argument("--mesh_walks", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -96,6 +101,8 @@ def main() -> None:
     for name, (const, side) in WALK_BOUNDS.items():
         for pair in WALK_PAIRS:
             BOUNDS[f"{pair} {name}"] = [(const, getattr(cs, const), side)]
+        for pair in MESH_WALK_PAIRS:
+            BOUNDS[f"{pair} {name}"] = [(f"MESH_{const}", getattr(cs, f"MESH_{const}"), side)]
     values = {k: [] for k in BOUNDS}
     images = tuple((torch.rand((h, w, 3), generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
                     * 2 - 1).cpu().numpy() for h, w in sizes_hw)
@@ -118,6 +125,17 @@ def main() -> None:
                 values[f"{pair} {name}"].append(v)
         print(f"[walks {i}] " + " ".join(f"{pair}: " + " ".join(f"{k} {v:.6g}" for k, v in r.items()) + ";"
                                          for pair, r in row.items()), flush=True)
+    content = dict(model=model, sched=sched, clip_model=clip_model, batch=cs.MESH_GUIDED_BATCH, pyramid=pyramid,
+                   mode_cfg=mode_cfg, bucketed=False)
+    for i in range(args.mesh_walks):
+        ref = cs.guided_walk(seed=3000 + i, **content)
+        row = {"content repeat": cs.walk_stats(cs.guided_walk(seed=3000 + i, **content), ref),
+               "content control": cs.walk_stats(cs.guided_walk(seed=4000 + i, **content), ref)}
+        for pair, r in row.items():
+            for name, v in r.items():
+                values[f"{pair} {name}"].append(v)
+        print(f"[mesh walks {i}] wall {ref[2]:.2f} s " + " ".join(
+            f"{pair}: " + " ".join(f"{k} {v:.6g}" for k, v in r.items()) + ";" for pair, r in row.items()), flush=True)
     if args.inputs == 0:
         _summary(values, t0)
         return

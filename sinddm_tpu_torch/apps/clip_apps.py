@@ -14,6 +14,13 @@ and ROI editing (port of ``sinddm_tpu/apps/clip_apps.py``).
 The guided walk runs per scale (each scale at its own size), or bucketed
 (``bucketed=True``, ``--bucketed_guidance``): every via scale on the finest
 scale's canvas, as :mod:`sinddm_tpu_torch.diffusion.bucketed` sets out.
+
+Under a mesh (``sharding``) the denoiser is split over both axes
+(:func:`~sinddm_tpu_torch.parallel.mesh.split_model_fn`; in the bucketed walk
+on each valid crop) and the CLIP loss over ``data``
+(:func:`~sinddm_tpu_torch.guidance.clip_guidance.clip_loss_and_grad`); every
+rank draws the whole batch's noise and view draws and returns the whole
+outputs and scores.
 """
 
 from __future__ import annotations
@@ -39,10 +46,13 @@ from sinddm_tpu_torch.guidance.clip_extractor import (
 from sinddm_tpu_torch.guidance.clip_guidance import (
     ClipCarry,
     DrawFn,
+    clip_loss_and_grad,
     init_clip_carry,
     make_clip_guidance,
     resize_guidance_carry,
 )
+from sinddm_tpu_torch.parallel import distributed
+from sinddm_tpu_torch.parallel.mesh import NamedSharding, require_named_sharding, split_model_fn
 from sinddm_tpu_torch.pyramid import Pyramid
 from sinddm_tpu_torch.schedules import Schedules
 
@@ -83,6 +93,7 @@ def clip_sampling(
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
     draw_fn: Optional[DrawFn] = None,
+    sharding: Optional[NamedSharding] = None,
     device="cuda",
 ) -> Tuple[List[torch.Tensor], List[Any]]:
     """Returns (per-scale outputs, per-scale aux with clip scores).
@@ -98,8 +109,10 @@ def clip_sampling(
     ``bucketed`` runs the via scales through :func:`clip_sampling_bucketed`.
     It samples the same process with
     other draws: they are canvas-shaped, and a guided scale below the
-    finest frames its views as the canvas does.
+    finest frames its views as the canvas does. ``sharding`` splits the
+    walk over a mesh (module docstring).
     """
+    sharding = require_named_sharding(sharding)
     n = pyramid.n_scales
     if guidance_sub_iters is None:
         guidance_sub_iters = list(reversed(range(n)))
@@ -112,7 +125,7 @@ def clip_sampling(
             guidance_sub_iters=guidance_sub_iters, quantile=quantile, stop_guidance=stop_guidance,
             llambda=llambda, scale_mul=scale_mul, reblurring=reblurring, omega=omega, start_noise=start_noise,
             sample_limited_t=sample_limited_t, collect_interm=collect_interm,
-            generator=generator, noise_fn=noise_fn, draw_fn=draw_fn, device=device,
+            generator=generator, noise_fn=noise_fn, draw_fn=draw_fn, sharding=sharding, device=device,
         )
 
     def guidance_factory(s, size_hw):
@@ -120,7 +133,7 @@ def clip_sampling(
         fn = make_clip_guidance(
             extractor, embeds_hr if s > 0 else embeds_lr, s=s, n_scales=n,
             sub_iters=int(guidance_sub_iters[s]), strength=strength, quantile=quantile,
-            llambda=llambda, stop_guidance=stop_guidance, draw_fn=draw_fn,
+            llambda=llambda, stop_guidance=stop_guidance, draw_fn=draw_fn, sharding=sharding,
         )
         return fn, carry
 
@@ -135,7 +148,7 @@ def clip_sampling(
         scale_mul=scale_mul, custom_t_list=custom_t_list, reblurring=reblurring, omega=omega,
         sample_limited_t=sample_limited_t, guidance_factory=guidance_factory,
         carry_transform=carry_transform, collect_aux=aux, collect_interm=collect_interm,
-        generator=generator, noise_fn=noise_fn, device=device,
+        generator=generator, noise_fn=noise_fn, sharding=sharding, device=device,
     )
     if not start_noise:  # clip_style_trans: inject the training image
         scale_ids = [n - 2, n - 1]
@@ -184,6 +197,7 @@ def clip_sampling_bucketed(
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
     draw_fn: Optional[DrawFn] = None,
+    sharding: Optional[NamedSharding] = None,
     device="cuda",
 ) -> Tuple[List[torch.Tensor], List[Any]]:
     """The guided pyramid with every via scale on the finest scale's canvas
@@ -197,7 +211,11 @@ def clip_sampling_bucketed(
     region to valid region as it enters. Every via scale's aux holds
     ``"clip_score"`` (a row a step; zeros where unguided) and
     ``"n_guided"``; ``"interm"`` frames are cropped to the scale's size.
+    Under ``sharding`` the denoiser is split on each scale's valid crop.
     """
+    sharding = require_named_sharding(sharding)
+    if sharding is not None:
+        model_fn = split_model_fn(model_fn, sharding)
     n = pyramid.n_scales
     if custom_t_list is None:
         custom_t_list = list(sched.num_timesteps_ideal[1:])
@@ -208,7 +226,7 @@ def clip_sampling_bucketed(
     frame_hw = resize_output_size(*canvas)
     b = sample_batch_size
     hook_kw = dict(n_scales=n, strength=strength, quantile=quantile, llambda=llambda,
-                   stop_guidance=stop_guidance, draw_fn=draw_fn)
+                   stop_guidance=stop_guidance, draw_fn=draw_fn, sharding=sharding)
 
     def t_min_of(s: int) -> int:
         return int(sched.num_timesteps_ideal[s + 1]) if (sample_limited_t and s < n - 1) else 0
@@ -283,6 +301,7 @@ def _clip_roi_ascent(
     strength: float,
     collect_interm: bool = False,
     draw_fn: Optional[DrawFn] = None,
+    sharding: Optional[NamedSharding] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """``n_iters`` steps of normalised CLIP-score ascent on ``patch`` [B, h, w, 3]
     in [-1, 1]: each step takes the score (minus the CLIP loss of the patch
@@ -292,14 +311,15 @@ def _clip_roi_ascent(
 
     Returns (patch, scores [n_iters], the pre-update patch of every step
     [n_iters, B, h, w, 3] when ``collect_interm``, else None). The loss draws
-    come from ``draw_fn(batch, n_templates)`` or the extractor's generator."""
+    come from ``draw_fn(batch, n_templates)`` or the extractor's generator;
+    ``sharding`` splits the loss over its ``data`` axis."""
     draw = draw_fn or extractor.draw
     x = patch
     scores, frames = [], []
     with torch.no_grad():
         for _ in range(n_iters):
-            loss, g01 = extractor.clip_loss_and_grad((x + 1.0) * 0.5, text_embeds,
-                                                     draw(x.shape[0], text_embeds.shape[0]))
+            loss, g01 = clip_loss_and_grad(extractor, (x + 1.0) * 0.5, text_embeds,
+                                           draw(x.shape[0], text_embeds.shape[0]), sharding)
             grad = -0.5 * g01  # the score's gradient in x: x01 = (x + 1) / 2
             norm_x = x.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
             norm_g = grad.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
@@ -328,6 +348,7 @@ def clip_roi_sampling(
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
     draw_fn: Optional[DrawFn] = None,
+    sharding: Optional[NamedSharding] = None,
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Returns (final [B, H, W, 3] in [-1, 1], ascent scores [n_iters], interm).
@@ -339,7 +360,11 @@ def clip_roi_sampling(
     ``collect_interm`` the third output holds the ascent's per-step patches
     (``"ascent"``) and the denoising steps' states (``"denoise"``), else it is
     None. Noise from ``noise_fn`` or ``generator``, loss draws from
-    ``draw_fn`` or the extractor's generator."""
+    ``draw_fn`` or the extractor's generator. ``sharding`` splits the ascent's
+    loss over ``data`` and the denoiser over the mesh."""
+    sharding = require_named_sharding(sharding)
+    if sharding is not None:
+        model_fn = split_model_fn(model_fn, sharding)
     n = pyramid.n_scales
     embeds = extractor.get_text_embedding(text_input, get_augmentations_template("lr"))
     finest = torch.as_tensor(np.asarray(pyramid.images[n - 1]), dtype=torch.float32, device=device)
@@ -347,7 +372,7 @@ def clip_roi_sampling(
     y, x, h, w = (int(v) for v in clip_roi_bb)
     patch, scores, ascent = _clip_roi_ascent(
         extractor, image[:, y : y + h, x : x + w].clone(), embeds, num_clip_iters, strength,
-        collect_interm=collect_interm, draw_fn=draw_fn)
+        collect_interm=collect_interm, draw_fn=draw_fn, sharding=sharding)
     image[:, y : y + h, x : x + w] = patch
     with torch.no_grad():
         final, _, aux = sample_via_scale(
@@ -408,14 +433,15 @@ def _roi_box(args, n_scales: int) -> List[int]:
 
 def run_clip_mode(args, model_fn: ModelFn, sched: Schedules, pyramid: Pyramid,
                   generator: Optional[torch.Generator], sample_t_list, scale_mul,
-                  results_folder, device) -> List[torch.Tensor]:
+                  results_folder, device, sharding: Optional[NamedSharding] = None) -> List[torch.Tensor]:
     """CLI dispatcher for the four CLIP modes: loads the tower, samples and
     writes PNGs under ``final_samples/``. ``clip_content`` / ``clip_style_*``
     write one grid a scale and the clip-score trace (``clip_score.png`` where
     matplotlib is installed, else ``clip_score.npy``); ``clip_roi`` writes
     ``clip_roi_{text}.png``. ``--save_interm`` adds the per-step frames
     (``interm_samples_scale_{s}/``, and ``interm_samples_clip_roi/`` for
-    ``clip_roi``)."""
+    ``clip_roi``). Under ``sharding`` the walk is split over the mesh and
+    only the primary rank writes files."""
     from sinddm_tpu_torch.models.clip.convert import find_clip_weights, load_clip
     from sinddm_tpu_torch.ops.image_io import save_image, save_interm_frames
 
@@ -437,8 +463,10 @@ def run_clip_mode(args, model_fn: ModelFn, sched: Schedules, pyramid: Pyramid,
             sample_batch_size=args.sample_batch_size, num_clip_iters=ROI_ASCENT_ITERS,
             num_denoising_steps=ROI_DENOISING_STEPS,
             clip_roi_bb=_roi_box(args, n), omega=args.omega, collect_interm=args.save_interm,
-            generator=generator, device=device,
+            generator=generator, sharding=sharding, device=device,
         )
+        if not distributed.is_primary():
+            return [final]
         if interm is not None:
             for i, frame in enumerate(interm["ascent"]):
                 save_image((frame.clamp(-1.0, 1.0) + 1.0) * 0.5,
@@ -456,8 +484,10 @@ def run_clip_mode(args, model_fn: ModelFn, sched: Schedules, pyramid: Pyramid,
         custom_t_list=sample_t_list, stop_guidance=3, scale_mul=scale_mul, reblurring=False,
         omega=args.omega, sample_limited_t=args.sample_limited_t, collect_interm=args.save_interm,
         bucketed=args.bucketed_guidance,
-        generator=generator, device=device, **cfg,
+        generator=generator, sharding=sharding, device=device, **cfg,
     )
+    if not distributed.is_primary():
+        return outputs
     desc = f"{args.mode}_{args.clip_text.replace(' ', '_')}"
     if args.save_interm:
         # style_trans's first output is the injected image at scale n-2

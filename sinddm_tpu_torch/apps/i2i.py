@@ -11,6 +11,11 @@
 
 The walk runs at the input's own size, ``(int(h / f), int(w / f))`` with
 ``f = scale_factor ** (n_scales - s - 1)``, not at the pyramid's sizes.
+
+Under a mesh (``sharding``) the denoiser is split over both axes
+(:func:`~sinddm_tpu_torch.parallel.mesh.split_model_fn`), at any input
+height: the slabs need not divide it, where the JAX package falls back to
+sharding the batch alone when H does not divide by ``spatial``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from sinddm_tpu_torch.diffusion.core import ModelFn, NoiseFn, make_noise_fn, sample_via_scale
 from sinddm_tpu_torch.ops.image import dilate_mask, match_histograms
 from sinddm_tpu_torch.ops.resize import resize_bilinear
+from sinddm_tpu_torch.parallel.mesh import NamedSharding, require_named_sharding, split_model_fn
 from sinddm_tpu_torch.pyramid import Pyramid
 from sinddm_tpu_torch.schedules import Schedules
 
@@ -77,6 +83,7 @@ def image2image(
     collect_interm: bool = False,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
+    sharding: Optional[NamedSharding] = None,
     device="cuda",
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Run ``mode`` ('harmonization' or 'style_transfer') from ``start_s``
@@ -90,7 +97,12 @@ def image2image(
     not s - 1 as in ``sample_scales``). ``collect_interm`` appends each run
     scale's per-step frames to ``collect_aux`` under ``"interm"``. Noise comes
     from ``noise_fn`` when given, else from ``generator`` on ``device``.
+    ``sharding`` splits each denoiser call over the mesh; every rank returns
+    the whole outputs.
     """
+    sharding = require_named_sharding(sharding)
+    if sharding is not None:
+        model_fn = split_model_fn(model_fn, sharding)
     n_scales = pyramid.n_scales
     if start_s is None:
         start_s = n_scales - 1

@@ -1,7 +1,9 @@
 """ROI-guided generation (port of ``sinddm_tpu/apps/roi.py``): the plain
 pyramid walk with the ROI paste hook of :mod:`sinddm_tpu_torch.guidance.roi`
 at every scale below the finest. Boxes are [y, x, h, w] at finest-scale
-coordinates."""
+coordinates. Under a mesh (``sharding``) the denoiser is split as
+``sample_scales`` splits it; the pastes are pointwise and run whole on
+every rank."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from sinddm_tpu_torch.apps.sampling import sample_scales
 from sinddm_tpu_torch.diffusion.core import ModelFn, NoiseFn
 from sinddm_tpu_torch.guidance.roi import make_roi_guidance
+from sinddm_tpu_torch.parallel.mesh import NamedSharding
 from sinddm_tpu_torch.pyramid import Pyramid
 from sinddm_tpu_torch.schedules import Schedules
 
@@ -33,6 +36,7 @@ def roi_guided_sampling(
     collect_interm: bool = False,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
+    sharding: Optional[NamedSharding] = None,
     device="cuda",
 ) -> List[torch.Tensor]:
     """Sample the pyramid with ``target_roi``'s patch pasted into each box of
@@ -49,5 +53,5 @@ def roi_guided_sampling(
         batch_size=batch_size, scale_mul=scale_mul, custom_t_list=custom_t_list, custom_sample=False,
         reblurring=reblurring, omega=omega, sample_limited_t=sample_limited_t,
         guidance_factory=guidance_factory, collect_aux=collect_aux, collect_interm=collect_interm,
-        generator=generator, noise_fn=noise_fn, device=device,
+        generator=generator, noise_fn=noise_fn, sharding=sharding, device=device,
     )

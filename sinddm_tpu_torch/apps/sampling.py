@@ -4,9 +4,16 @@ Scale 0 is sampled from pure noise (or a start image is injected); each
 finer scale bilinearly upsamples the previous output, re-noises it part
 way and denoises it with the reblurring sampler.
 
-The JAX ``sample_scales`` options ``precompile`` (warming JAX's per-scale
-compile cache) and ``sharding`` (a device mesh) have no counterpart here:
-PyTorch runs eagerly, and this port targets one card. Nor has
+``sharding`` (a :class:`~sinddm_tpu_torch.parallel.mesh.NamedSharding`
+over a world of ranks) splits the denoiser's batch rows over ``data`` and
+its image rows over ``spatial`` (:func:`~sinddm_tpu_torch.parallel.mesh.split_model_fn`).
+Every rank holds the whole state, draws the whole noise from its own
+generator, seeded as the others are, and returns the whole outputs: a world
+makes the single process's draws and its outputs. The JAX package returns a
+sharded global array that its ``fetch`` gathers.
+
+The JAX ``sample_scales`` option ``precompile`` (warming JAX's per-scale
+compile cache) has no counterpart here: PyTorch runs eagerly. Nor has
 ``guidance_params``, which keeps the CLIP tower out of the compiled
 program's constants: here the guidance hook simply holds its tower.
 """
@@ -26,6 +33,7 @@ from sinddm_tpu_torch.diffusion.core import (
     sample_via_scale,
 )
 from sinddm_tpu_torch.ops.resize import resize_bilinear
+from sinddm_tpu_torch.parallel.mesh import NamedSharding, require_named_sharding, split_model_fn
 from sinddm_tpu_torch.schedules import Schedules
 
 
@@ -80,6 +88,7 @@ def sample_scales(
     collect_interm: bool = False,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
+    sharding: Optional[NamedSharding] = None,
     device="cuda",
 ) -> List[torch.Tensor]:
     """Run the full pyramid; returns the per-scale outputs [B, H, W, 3].
@@ -97,7 +106,13 @@ def sample_scales(
     resizes on the way into each finer scale. A scale whose hook is None
     passes the carry on untouched. Each scale's ``collect_aux`` entry then
     also holds the hook's aux, stacked over the steps (``"clip_score"``).
+
+    ``sharding`` splits each denoiser call over the mesh (module docstring);
+    a hook that splits its own work takes the sharding from its factory.
     """
+    sharding = require_named_sharding(sharding)
+    if sharding is not None:
+        model_fn = split_model_fn(model_fn, sharding)
     if custom_t_list is None:
         custom_t_list = list(sched.num_timesteps_ideal[1:])
     if custom_scales is None:

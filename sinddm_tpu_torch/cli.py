@@ -31,9 +31,19 @@ Not taken: ``--steps_per_chunk`` and ``--fused_mode`` (they fuse training
 steps into one XLA call; the port runs a step a call); ``--precompile`` (it
 compiles the sampler's XLA executables ahead of the walk; PyTorch runs
 eagerly and compiles nothing, and the CUDA kernels are built once, at first
-use); the mesh flags (``--coordinator``, ``--num_processes``,
-``--process_id``, ``--mesh_data``, ``--mesh_spatial``: the port runs on one
-card).
+use).
+
+A world of ranks, one process a card: every process runs the same command
+line with ``--coordinator host:port --num_processes N --process_id i`` (or
+the ``SINDDM_*`` environment, or under ``torchrun``), and ``--mesh_data D
+--mesh_spatial S`` lays the ranks out as the JAX CLI lays devices; the
+world must be exactly ``D * S`` ranks. The world is joined before anything
+touches CUDA (``parallel/distributed.py`` sets out the backend rule: NCCL
+with a card a rank, gloo where ranks share a card, gloo on the CPU with
+``--device cpu``). The local rank picks the card, so ``--device_num`` is
+refused in a world. Every rank runs the mode, split over the mesh
+(``parallel/mesh.py``); only rank 0 writes files, and ``--profile DIR``
+writes one trace a rank under ``DIR/rank{r}``.
 
 ``--bucketed_guidance`` runs the via scales of ``clip_content`` and
 ``clip_style_*`` on the finest scale's canvas
@@ -107,6 +117,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_num", default=0, type=int,
                    help="index of the CUDA card to run on (cuda:N, the reference's main.py:53 "
                         "meaning); refused with --device cpu")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: rank 0's rendezvous address host:port; every "
+                        "process runs the same CLI with --num_processes/--process_id (or "
+                        "SINDDM_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID env, or torchrun's) and "
+                        "the mesh spans all ranks, one a card (parallel/distributed.py)")
+    p.add_argument("--num_processes", default=None, type=int,
+                   help="multi-process: total number of processes (ranks)")
+    p.add_argument("--process_id", default=None, type=int,
+                   help="multi-process: this process's index (its rank)")
+    p.add_argument("--mesh_data", default=1, type=int,
+                   help="ranks on the 'data' (batch) mesh axis; "
+                        "mesh_data*mesh_spatial ranks are used (1 1 = no mesh)")
+    p.add_argument("--mesh_spatial", default=1, type=int,
+                   help="ranks on the 'spatial' (image H) mesh axis")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the mode (host, and the card's kernels "
                         "on a CUDA device) into DIR (open with TensorBoard)")
@@ -169,38 +193,77 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    from sinddm_tpu_torch.parallel import distributed
+
     args = build_parser().parse_args(argv)
-    run(args)
+    try:
+        run(args)
+    finally:
+        distributed.shutdown()
 
 
 def run(args) -> list:
     """Run the mode that ``args`` names; returns its outputs on the device
     (the per-scale outputs in [-1, 1]; for harmonization and style transfer
-    the final composite in [0, 1])."""
+    the final composite in [0, 1]). Joins the world that the flags or the
+    environment name first (and stays in it: :func:`main` leaves it)."""
     import torch
 
+    from sinddm_tpu_torch.config import MeshConfig
+    from sinddm_tpu_torch.parallel import distributed
+    from sinddm_tpu_torch.parallel.mesh import batch_sharding
+
+    # the world first: an NCCL rank binds its card before anything touches CUDA
+    try:
+        in_world = distributed.initialize(args.coordinator, args.num_processes, args.process_id, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
     device = torch.device(args.device)
-    if args.device_num:
+    if in_world:
+        if args.device_num:
+            raise SystemExit("--device_num is refused in a world of ranks: each rank's local rank picks its card")
+        device = distributed.runtime().device
+    elif args.device_num:
         if device.type != "cuda":
             raise SystemExit("--device_num selects a CUDA card; it cannot be combined with --device cpu")
         device = torch.device("cuda", args.device_num)
+    mesh_cfg = MeshConfig(data=args.mesh_data, spatial=args.mesh_spatial)
+    try:
+        mesh = mesh_cfg.build()
+        if args.mode == "train":
+            mesh_cfg.validate_batch(args.train_batch_size, "--train_batch_size")
+        mesh_cfg.validate_batch(args.sample_batch_size, "--sample_batch_size")
+    except ValueError as e:
+        raise SystemExit(str(e))
+    sharding = None
+    if mesh is not None:
+        import torch.distributed as dist
+
+        cards = [None] * mesh.size
+        dist.all_gather_object(cards, f"{os.uname().nodename}:{device}")
+        if distributed.is_primary():
+            print(f"mesh: {mesh.shape} backend {distributed.runtime().backend} ranks->cards "
+                  f"{dict(enumerate(cards))}", flush=True)
+        distributed.build_kernels_once()
+        sharding = batch_sharding(mesh)
     if not args.profile:
-        return _run_mode(args, device)
+        return _run_mode(args, device, sharding)
     from sinddm_tpu_torch.utils.profiling import trace
 
     with trace(args.profile, device):
-        outs = _run_mode(args, device)
+        outs = _run_mode(args, device, sharding)
     print(f"profiler trace written to {args.profile}")
     return outs
 
 
-def _run_mode(args, device) -> list:
+def _run_mode(args, device, sharding=None) -> list:
     import torch
 
     from sinddm_tpu_torch.apps.sampling import sample_scales, save_interm_scales
     from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
     from sinddm_tpu_torch.models.convert_reference import load_reference_checkpoint
     from sinddm_tpu_torch.ops.image_io import save_image
+    from sinddm_tpu_torch.parallel import distributed
     from sinddm_tpu_torch.pyramid import build_pyramid
     from sinddm_tpu_torch.schedules import make_schedules
     from sinddm_tpu_torch.training.trainer import checkpoint_path
@@ -209,11 +272,12 @@ def _run_mode(args, device) -> list:
         raise SystemExit("--mode train trains in float32; --compute_dtype bfloat16 is for the sampling modes")
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.compute_dtype]
     results_folder = Path(args.results_folder) / args.scope
+    primary = distributed.is_primary()
     pyramid = build_pyramid(
         os.path.join(args.dataset_folder, args.image_name),
         scale_factor=args.scale_factor,
         auto_scale=50000,
-        save_to=args.dataset_folder if os.access(args.dataset_folder, os.W_OK) else None,
+        save_to=args.dataset_folder if primary and os.access(args.dataset_folder, os.W_OK) else None,
     )
     sched = make_schedules(
         timesteps=args.timesteps, scale_losses=pyramid.rescale_losses,
@@ -230,8 +294,10 @@ def _run_mode(args, device) -> list:
             scale_mul=(args.scale_mul[0], args.scale_mul[1]),
             custom_t_list=args.sample_t_list, sample_limited_t=args.sample_limited_t,
             omega=args.omega, custom_sample=True, collect_aux=interm_aux,
-            collect_interm=args.save_interm, generator=generator, device=device,
+            collect_interm=args.save_interm, generator=generator, sharding=sharding, device=device,
         )
+        if not primary:
+            return outs
         if interm_aux is not None:
             save_interm_scales(interm_aux, range(len(interm_aux)), sched, pyramid.n_scales,
                                args.sample_limited_t, results_folder)
@@ -246,7 +312,7 @@ def _run_mode(args, device) -> list:
         return outs
 
     if args.mode == "train":
-        return run_sample(_train(args, sched, pyramid, results_folder, device), "post_train")
+        return run_sample(_train(args, sched, pyramid, results_folder, device, sharding), "post_train")
 
     if args.load_reference_ckpt:
         _, tree, step = load_reference_checkpoint(args.load_reference_ckpt)
@@ -264,16 +330,16 @@ def _run_mode(args, device) -> list:
 
         return run_clip_mode(
             args, model, sched, pyramid, generator, args.sample_t_list,
-            (args.scale_mul[0], args.scale_mul[1]), results_folder, device,
+            (args.scale_mul[0], args.scale_mul[1]), results_folder, device, sharding,
         )
     if args.mode in I2I_MODES:
-        return _i2i(args, model, sched, pyramid, generator, results_folder, device)
+        return _i2i(args, model, sched, pyramid, generator, results_folder, device, sharding)
     if args.mode == "roi":
-        return _roi(args, model, sched, pyramid, generator, results_folder, device)
+        return _roi(args, model, sched, pyramid, generator, results_folder, device, sharding)
     return run_sample(model, "sample")
 
 
-def _i2i(args, model, sched, pyramid, generator, results_folder, device) -> list:
+def _i2i(args, model, sched, pyramid, generator, results_folder, device, sharding=None) -> list:
     """--mode harmonization / style_transfer: the input (and the mask) from
     ``{dataset_folder}/i2i/``, injected at the finest scale with
     ``--start_t_harm`` / ``--start_t_style`` steps; writes the batch grid
@@ -284,6 +350,7 @@ def _i2i(args, model, sched, pyramid, generator, results_folder, device) -> list
     from sinddm_tpu_torch.apps.i2i import image2image
     from sinddm_tpu_torch.apps.sampling import save_interm_scales
     from sinddm_tpu_torch.ops.image_io import save_image
+    from sinddm_tpu_torch.parallel import distributed
     from sinddm_tpu_torch.pyramid import load_external_image
 
     i2i_folder = os.path.join(args.dataset_folder, "i2i")
@@ -301,8 +368,10 @@ def _i2i(args, model, sched, pyramid, generator, results_folder, device) -> list
         model, sched, pyramid, input_img, mode=args.mode, mask_img=mask_img, start_s=n - 1,
         custom_t=[0] * (n - 1) + [start_t], batch_size=args.sample_batch_size, omega=args.omega,
         sample_limited_t=args.sample_limited_t, collect_aux=interm_aux, collect_interm=args.save_interm,
-        generator=generator, device=device,
+        generator=generator, sharding=sharding, device=device,
     )
+    if not distributed.is_primary():
+        return [final]
     if interm_aux is not None:
         save_interm_scales(interm_aux, [n - 1], sched, n, args.sample_limited_t, results_folder)
     out_dir = results_folder / "i2i_final_samples"
@@ -315,7 +384,7 @@ def _i2i(args, model, sched, pyramid, generator, results_folder, device) -> list
     return [final]
 
 
-def _roi(args, model, sched, pyramid, generator, results_folder, device) -> list:
+def _roi(args, model, sched, pyramid, generator, results_folder, device, sharding=None) -> list:
     """--mode roi: the source box (``--target_roi``) pasted into each target
     box (``--roi_bb``, on the ``--scale_mul``-enlarged canvas) at every scale
     below the finest, or both drawn with OpenCV's selector
@@ -328,6 +397,7 @@ def _roi(args, model, sched, pyramid, generator, results_folder, device) -> list
     from sinddm_tpu_torch.apps.roi import roi_guided_sampling
     from sinddm_tpu_torch.apps.sampling import save_interm_scales
     from sinddm_tpu_torch.ops.image_io import save_image, to_uint8
+    from sinddm_tpu_torch.parallel import distributed
 
     if not args.interactive and (args.target_roi is None or not args.roi_bb):
         raise SystemExit("--roi mode needs --target_roi and --roi_bb (or --interactive)")
@@ -355,15 +425,19 @@ def _roi(args, model, sched, pyramid, generator, results_folder, device) -> list
     for bb in roi_bb_list:
         y, x, h, w = (int(v) for v in bb)
         preview[y : y + h, x : x + w, :] = np.asarray(patch_u8.resize((w, h), Image.NEAREST), np.float32) / 255.0
-    save_image(preview, results_folder / "roi_patches.png")
+    primary = distributed.is_primary()
+    if primary:
+        save_image(preview, results_folder / "roi_patches.png")
 
     interm_aux = [] if args.save_interm else None
     outs = roi_guided_sampling(
         model, sched, pyramid, target_roi=target_roi, roi_bb_list=roi_bb_list,
         custom_t_list=args.sample_t_list, batch_size=args.sample_batch_size, scale_mul=scale_mul,
         omega=args.omega, sample_limited_t=args.sample_limited_t, collect_aux=interm_aux,
-        collect_interm=args.save_interm, generator=generator, device=device,
+        collect_interm=args.save_interm, generator=generator, sharding=sharding, device=device,
     )
+    if not primary:
+        return outs
     if interm_aux is not None:
         save_interm_scales(interm_aux, range(n), sched, n, args.sample_limited_t, results_folder)
     out_dir = results_folder / "final_samples"
@@ -372,10 +446,11 @@ def _roi(args, model, sched, pyramid, generator, results_folder, device) -> list
     return outs
 
 
-def _train(args, sched, pyramid, results_folder, device):
+def _train(args, sched, pyramid, results_folder, device, sharding=None):
     """--mode train: build the trainer, restore what the flags name, train,
     and return the EMA denoiser. Every milestone writes 16 scale-0 samples
-    of the EMA weights as ``sample-{milestone}.png``."""
+    of the EMA weights as ``sample-{milestone}.png`` (the primary rank
+    alone, in a world, which also alone logs)."""
     import torch
 
     from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
@@ -383,6 +458,7 @@ def _train(args, sched, pyramid, results_folder, device):
     from sinddm_tpu_torch.models.convert import denoiser_params_from_flax
     from sinddm_tpu_torch.models.denoiser import SinDDMNet
     from sinddm_tpu_torch.ops.image_io import save_image
+    from sinddm_tpu_torch.parallel import distributed
     from sinddm_tpu_torch.training.trainer import MultiscaleTrainer
 
     train_cfg = TrainConfig(
@@ -394,7 +470,9 @@ def _train(args, sched, pyramid, results_folder, device):
                                loss_factor=args.loss_factor, sample_limited_t=args.sample_limited_t,
                                omega=args.omega)
     trainer = MultiscaleTrainer(SinDDMNet(dim=args.dim, device=device), sched, pyramid, train_cfg, diff_cfg,
-                                results_folder, seed=args.seed, device=device)
+                                results_folder, seed=args.seed, device=device,
+                                mesh=None if sharding is None else sharding.mesh)
+    primary = distributed.is_primary()
     if args.load_reference_ckpt:
         trainer.load_path(args.load_reference_ckpt)
         print(f"imported reference checkpoint at step {trainer.step}")
@@ -407,6 +485,8 @@ def _train(args, sched, pyramid, results_folder, device):
         print(f"resumed at step {trainer.step}")
 
     def on_milestone(milestone, tr):
+        if not primary:
+            return
         h0, w0 = pyramid.sizes_hw[0]
         with torch.no_grad():
             x, _, _ = sample_scale0(tr.ema_model, sched, (16, h0, w0, 3), s=0, t_min=0, omega=args.omega,
@@ -414,7 +494,7 @@ def _train(args, sched, pyramid, results_folder, device):
                                     device=device)
         save_image((x + 1) * 0.5, results_folder / f"sample-{milestone}.png")
 
-    trainer.train(on_milestone=on_milestone)
+    trainer.train(on_milestone=on_milestone, log_fn=print if primary else (lambda _: None))
     return trainer.ema_model
 
 

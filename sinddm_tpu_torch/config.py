@@ -1,9 +1,9 @@
 """Configuration of the port (part of ``sinddm_tpu/config.py``).
 
 The dataclasses that sampling and training read, with the JAX package's
-defaults. ``TrainConfig`` leaves out ``steps_per_chunk`` and ``fused_mode``:
-they fuse training steps into one XLA call, and the port runs one step a
-call. The guidance and mesh configurations arrive with their slices.
+defaults, and ``MeshConfig``. ``TrainConfig`` leaves out ``steps_per_chunk``
+and ``fused_mode``: they fuse training steps into one XLA call, and the port
+runs one step a call.
 """
 
 from __future__ import annotations
@@ -52,3 +52,52 @@ class SampleConfig:
     sample_batch_size: int = 16
     scale_mul: Tuple[float, float] = (1.0, 1.0)
     sample_t_list: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh layout: ('data', 'spatial') axes over the world's ranks, one rank
+    a card (the JAX package's is over one process's devices).
+
+    ``data * spatial`` ranks are used; (1, 1) means no mesh. Built by the
+    CLI from ``--mesh_data`` / ``--mesh_spatial``.
+    """
+
+    data: int = 1
+    spatial: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.spatial
+
+    def build(self, world_size: Optional[int] = None):
+        """Return a ('data', 'spatial') :class:`~sinddm_tpu_torch.parallel.mesh.Mesh`,
+        or None for the 1x1 layout in a single process.
+
+        Raises ValueError with an actionable message when the world is not
+        exactly ``data * spatial`` ranks: a world larger than the mesh would
+        leave ranks idle, a smaller one cannot hold it."""
+        from sinddm_tpu_torch.parallel import distributed
+
+        world = distributed.process_count() if world_size is None else int(world_size)
+        if self.n_devices != world:
+            raise ValueError(
+                f"mesh data={self.data} x spatial={self.spatial} needs "
+                f"{self.n_devices} ranks; the world has {world} (one process a card: "
+                f"--num_processes {self.n_devices}, or torchrun --nproc-per-node)"
+            )
+        if self.n_devices <= 1:
+            return None
+        from sinddm_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(spatial=self.spatial, data=self.data)
+
+    def validate_batch(self, batch_size: int, what: str) -> None:
+        """Fail fast when a batch can't be laid out over the data axis, with
+        the JAX package's message. The port's split would take an uneven
+        batch, but the CLI keeps the JAX CLI's rule."""
+        if self.data > 1 and batch_size % self.data != 0:
+            raise ValueError(
+                f"{what} ({batch_size}) must be divisible by "
+                f"--mesh_data ({self.data})"
+            )

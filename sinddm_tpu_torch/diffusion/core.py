@@ -282,6 +282,8 @@ def p_losses(
     x_orig: Optional[torch.Tensor] = None,
     loss_type: str = "l1",
     valid_mask: Optional[torch.Tensor] = None,
+    denominator: Optional[float] = None,
+    first_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Training loss of one batch at timesteps ``t`` [B] with ``noise``.
 
@@ -292,7 +294,12 @@ def p_losses(
     the output) restricts the mean to the pixels where it is 1.
     ``l1_pred_img`` compares the prediction with the mix at t - 1, or with
     ``x_orig`` when the batch's first timestep is 0 (the reference tests
-    t[0] only)."""
+    t[0] only).
+
+    A rank of a split batch computes its part of the batch's loss: it passes
+    the whole batch's element count as ``denominator`` (the masked sum is
+    divided by it, not by the count it sums), and the whole batch's first
+    timestep as ``first_t``."""
     if s > 0:
         g = extract(sched.gammas_row(s), t)
         x_mix = g * x_start + (1.0 - g) * x_orig
@@ -304,9 +311,9 @@ def p_losses(
 
     def mean(err):
         if valid_mask is None:
-            return err.mean()
+            return err.mean() if denominator is None else err.sum() / denominator
         w = torch.broadcast_to(valid_mask, err.shape).to(err.dtype)
-        return (err * w).sum() / w.sum()
+        return (err * w).sum() / (w.sum() if denominator is None else denominator)
 
     if loss_type == "l1":
         return mean((noise - x_recon).abs())
@@ -317,11 +324,34 @@ def p_losses(
             g_prev = extract(sched.gammas_row(s), torch.clamp(t - 1, min=0))
             mix_prev = g_prev * x_start + (1.0 - g_prev) * x_orig
             # a tensor test, not a Python one: no device-to-host sync
-            x_mix_prev = torch.where(t[0] > 0, mix_prev, torch.broadcast_to(x_orig, mix_prev.shape))
+            t0 = t[0] if first_t is None else first_t
+            x_mix_prev = torch.where(t0 > 0, mix_prev, torch.broadcast_to(x_orig, mix_prev.shape))
         else:
             x_mix_prev = torch.broadcast_to(x_start, x_recon.shape)
         return mean((x_mix_prev - x_recon).abs())
     raise NotImplementedError(loss_type)
+
+
+def training_draws(
+    sched: Schedules,
+    x_orig: torch.Tensor,
+    *,
+    s: int,
+    batch_size: int,
+    generator: Optional[torch.Generator] = None,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draws of :func:`training_loss`: t ~ U[0, num_timesteps_trained[s])
+    [B], then the noise [B, H, W, C] of ``x_orig``'s shape, from
+    ``generator`` on ``x_orig``'s device; an injected one is kept."""
+    device = x_orig.device
+    if t is None:
+        t = torch.randint(0, sched.num_timesteps_trained[s], (batch_size,), generator=generator, device=device)
+    if noise is None:
+        noise = torch.randn((batch_size,) + tuple(x_orig.shape[1:]), generator=generator, device=device,
+                            dtype=x_orig.dtype)
+    return t, noise
 
 
 def training_loss(
@@ -342,12 +372,7 @@ def training_loss(
     from ``generator``), or take them injected, then compute
     :func:`p_losses`. ``x_orig`` / ``x_blurry`` may be [1, H, W, C] and
     broadcast over the batch."""
-    device = x_orig.device
-    if t is None:
-        t = torch.randint(0, sched.num_timesteps_trained[s], (batch_size,), generator=generator, device=device)
-    if noise is None:
-        noise = torch.randn((batch_size,) + tuple(x_orig.shape[1:]), generator=generator, device=device,
-                            dtype=x_orig.dtype)
+    t, noise = training_draws(sched, x_orig, s=s, batch_size=batch_size, generator=generator, t=t, noise=noise)
     if s > 0:
         return p_losses(model_fn, sched, x_blurry, t, noise, s=s, x_orig=x_orig, loss_type=loss_type,
                         valid_mask=valid_mask)

@@ -102,6 +102,10 @@ class ViewDraws(NamedTuple):
     def views(self, lo: int, hi: int) -> "ViewDraws":
         return ViewDraws(*(f[:, lo:hi] for f in self))
 
+    def rows(self, lo: int, hi: int) -> "ViewDraws":
+        """The draws of images ``lo .. hi - 1``."""
+        return ViewDraws(*(f[lo:hi] for f in self))
+
 
 class LossDraws(NamedTuple):
     """The random numbers of one call of the CLIP loss."""
@@ -109,6 +113,11 @@ class LossDraws(NamedTuple):
     n_sel: torch.Tensor  # [] int64 in 1..N: how many templates count
     idx: torch.Tensor    # [N] int64 in 0..N-1: templates drawn with replacement (the first n_sel count)
     views: ViewDraws
+
+    def rows(self, lo: int, hi: int) -> "LossDraws":
+        """The draws of images ``lo .. hi - 1`` of the batch: their views'
+        rows; the template draws are the whole batch's."""
+        return LossDraws(self.n_sel, self.idx, self.views.rows(lo, hi))
 
 
 def draw_view_params(batch: int, n_aug: int, generator: Optional[torch.Generator], device) -> ViewDraws:

@@ -17,6 +17,13 @@ No device value is read on the host.
 
 Carry: (mask [B,H,W,1], x_recon_prev [B,H,W,3], has_mask). The app layer
 resizes it between scales (:func:`resize_guidance_carry`).
+
+Under a mesh (``sharding``) the CLIP loss and its gradient, most of a guided
+step, are split over the ``data`` axis (:func:`clip_loss_and_grad`): a rank
+takes its images and their rows of the whole batch's view draws, and the
+gradient is gathered. The loss is a sum over images, so the ranks' losses
+add up to it. The rest of the step (the threshold, the norm match) is per
+sample and runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,10 +33,12 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sinddm_tpu_torch.diffusion.bucketed import valid_mask_2d
 from sinddm_tpu_torch.guidance.clip_extractor import ClipExtractor, LossDraws
 from sinddm_tpu_torch.ops.resize import resize_bilinear
+from sinddm_tpu_torch.parallel.mesh import DATA_AXIS, NamedSharding, gather_block, split_range
 
 # draw_fn(batch, n_templates) -> the random numbers of one CLIP loss call
 DrawFn = Callable[[int, int], LossDraws]
@@ -99,6 +108,29 @@ def thresholded_grad(grad: torch.Tensor, quantile: float = 0.8, valid_mask: Opti
     return sparse, mask
 
 
+def clip_loss_and_grad(extractor: ClipExtractor, x01: torch.Tensor, text_embeds: torch.Tensor, draws: LossDraws,
+                       sharding: Optional[NamedSharding] = None, **region) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:meth:`ClipExtractor.clip_loss_and_grad` of the batch ``x01`` with the
+    whole batch's ``draws``, split over ``sharding``'s ``data`` axis: each
+    rank computes its images with their rows of the draws, the losses are
+    summed and the gradient gathered over the axis. Every rank gets the
+    whole batch's loss and gradient."""
+    group = None
+    if sharding is not None and sharding.axis(0) == DATA_AXIS:
+        group = sharding.mesh.group(DATA_AXIS)
+    if group is None:
+        return extractor.clip_loss_and_grad(x01, text_embeds, draws, **region)
+    b = x01.shape[0]
+    lo, hi = split_range(b, *sharding.parts(0))
+    if hi > lo:
+        loss, grad = extractor.clip_loss_and_grad(x01[lo:hi], text_embeds, draws.rows(lo, hi), **region)
+    else:  # more ranks than images
+        loss, grad = x01.new_zeros(()), x01.new_zeros((0,) + tuple(x01.shape[1:]))
+    loss = loss.clone()
+    dist.all_reduce(loss, group=group)
+    return loss, gather_block(grad, x01.shape, (slice(lo, hi),), group)
+
+
 def _vec_norm(x: torch.Tensor) -> torch.Tensor:
     """Per-sample L2 norm over (H, W, C), keepdims."""
     return torch.sqrt((x * x).sum(dim=(1, 2, 3), keepdim=True))
@@ -118,6 +150,7 @@ def make_clip_guidance(
     draw_fn: Optional[DrawFn] = None,
     valid_hw: Optional[Tuple[int, int]] = None,
     frame_hw: Optional[Tuple[int, int]] = None,
+    sharding: Optional[NamedSharding] = None,
 ):
     """Build the per-scale guidance hook (None when sub_iters == 0):
     ``guidance_fn(x_recon, x_t, t, s, carry) -> (x_recon, carry, aux)`` with
@@ -129,7 +162,9 @@ def make_clip_guidance(
     image's top-left region of the padded canvas, and ``frame_hw``, the
     views' fixed frame: the views are cropped from the valid region, the
     gradient is zeroed outside it (a bilinear tap at its edge can reach the
-    first padded row or column), and the quantile is taken over its pixels."""
+    first padded row or column), and the quantile is taken over its pixels.
+    ``sharding`` splits the CLIP loss over its ``data`` axis
+    (:func:`clip_loss_and_grad`); ``draw_fn`` draws for the whole batch."""
     if sub_iters <= 0:
         return None
     if draw_fn is None:
@@ -152,8 +187,8 @@ def make_clip_guidance(
             valid = dict(valid_mask=vmask, n_valid=valid_hw[0] * valid_hw[1])
         scores = []
         for _ in range(sub_iters):
-            loss, grad01 = extractor.clip_loss_and_grad(
-                (x + 1.0) * 0.5, text_embeds, draw_fn(x.shape[0], n_templates), **region)
+            loss, grad01 = clip_loss_and_grad(
+                extractor, (x + 1.0) * 0.5, text_embeds, draw_fn(x.shape[0], n_templates), sharding, **region)
             grad = -0.5 * grad01  # d(-loss((x + 1) / 2)) / dx
             if valid:
                 grad = grad * valid["valid_mask"][None, :, :, None]

@@ -42,6 +42,14 @@ from sinddm_tpu_torch.ops.conv_block import conv_block, gelu
 
 TIME_DIM = 32
 
+# How many rows (and columns) away an output pixel reads its input: each of
+# the four blocks convolves 5x5 (radius 2), then 3x3 twice (1 + 1), its
+# residual 1x1 reading the block's input at the pixel itself; the final conv
+# is 1x1. 4 x (2 + 1 + 1) = 16, a 33-pixel receptive field (the JAX
+# package's mesh docstring says 35, which would be 17). A split call
+# (parallel/mesh.py split_model_fn) reads this many halo rows each side.
+RECEPTIVE_RADIUS = 4 * (2 + 1 + 1)
+
 
 def sinusoidal_pos_emb(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal embedding of a [B] vector -> [B, dim] float32:

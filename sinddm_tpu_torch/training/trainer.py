@@ -26,6 +26,16 @@ run many steps in one XLA call, and the port does not fuse steps):
   (:mod:`~sinddm_tpu_torch.models.export_reference`) with Adam's state
   dict under the extra key ``opt`` (the reference's ``sched`` key is the
   ``MultiStepLR`` state dict, as here), beside ``model-{milestone}.loss.json``.
+
+Under a mesh (``mesh=``, the JAX trainer's batch over ``data``, image H over
+``spatial``) every rank draws the scale, ``t`` and the noise of the whole
+batch, as one process does, and takes its batch rows and its image rows
+with a halo of the denoiser's receptive radius. Its loss is the sum over
+the rows it owns divided by the whole batch's count, so the ranks' losses
+add up to the batch's; ``l1_pred_img`` tests the whole batch's ``t[0]``.
+After the backward pass the gradients are summed over the world, and Adam
+and the EMA step alike on every rank. Only the primary rank writes
+checkpoints; every rank reads them, after a barrier.
 """
 
 from __future__ import annotations
@@ -41,13 +51,17 @@ import numpy as np
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
 from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
-from sinddm_tpu_torch.diffusion.core import training_loss
+from sinddm_tpu_torch.diffusion.core import p_losses, training_draws, training_loss
 from sinddm_tpu_torch.models.convert import denoiser_params_from_flax
 from sinddm_tpu_torch.models.convert_reference import denoiser_params_from_state_dict, read_checkpoint
-from sinddm_tpu_torch.models.denoiser import SinDDMNet
+from sinddm_tpu_torch.models.denoiser import RECEPTIVE_RADIUS, SinDDMNet
 from sinddm_tpu_torch.models.export_reference import reference_payload
 from sinddm_tpu_torch.ops.conv_block import conv_block_train
+from sinddm_tpu_torch.parallel import distributed
+from sinddm_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, halo_slab, shard_params, split_range
 from sinddm_tpu_torch.pyramid import Pyramid
 from sinddm_tpu_torch.schedules import Schedules
 
@@ -177,8 +191,10 @@ class MultiscaleTrainer:
         results_folder,
         seed: int = 0,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.device = torch.device(device)
+        self.mesh = mesh
         if model.compute_dtype != torch.float32:
             raise ValueError(f"the trainer trains in float32, got a {model.compute_dtype} model")
         wrong = {str(p.device) for p in model.parameters() if p.device.type != self.device.type}
@@ -193,6 +209,8 @@ class MultiscaleTrainer:
         self.results_folder.mkdir(parents=True, exist_ok=True)
 
         init_flax_params_(model, seed)
+        if mesh is not None:
+            shard_params(model, mesh)
         self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
         self.opt = torch.optim.Adam(model.parameters(), lr=train_cfg.train_lr, betas=(0.9, 0.999), eps=1e-8)
         self.scheduler = torch.optim.lr_scheduler.MultiStepLR(
@@ -215,24 +233,52 @@ class MultiscaleTrainer:
         """The training forward: the denoiser with the differentiable block."""
         return self.model.run(x, t, s, conv_block_train)
 
+    def _loss(self, s: int, t, noise) -> torch.Tensor:
+        """The loss of one batch, drawn (or injected) whole; under a mesh,
+        this rank's part of it (module docstring)."""
+        x_orig, x_blur = self.data_list[s]
+        kw = dict(s=s, batch_size=self.cfg.train_batch_size, generator=self.generator, t=t, noise=noise)
+        if self.mesh is None:
+            return training_loss(self.model_fn, self.sched, x_orig, x_blur, loss_type=self.diff_cfg.loss_type, **kw)
+        t, noise = training_draws(self.sched, x_orig, **kw)
+        b, h = noise.shape[:2]
+        b0, b1 = split_range(b, self.mesh.shape[DATA_AXIS], self.mesh.coords[0])
+        h0, h1, in0, in1 = halo_slab(h, self.mesh.shape[SPATIAL_AXIS], self.mesh.coords[1], RECEPTIVE_RADIUS)
+        owned = torch.zeros((1, in1 - in0, 1, 1), device=noise.device)
+        owned[:, h0 - in0 : h1 - in0] = 1.0
+        x_start = x_blur if s > 0 else x_orig
+        return p_losses(self.model_fn, self.sched, x_start[:, in0:in1], t[b0:b1], noise[b0:b1, in0:in1], s=s,
+                        x_orig=x_orig[:, in0:in1] if s > 0 else None, loss_type=self.diff_cfg.loss_type,
+                        valid_mask=owned, denominator=noise.numel(), first_t=t[0])
+
+    def _sum_over_world(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sum the parameters' gradients and the loss over the world (one
+        all-reduce); every rank then holds the whole batch's."""
+        params = list(self.model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]
+                         + [loss.detach().reshape(1)])
+        dist.all_reduce(flat)
+        offset = 0
+        for p in params:
+            p.grad = flat[offset : offset + p.numel()].view_as(p)
+            offset += p.numel()
+        return flat[offset]
+
     def train_step(self, s: Optional[int] = None, t=None, noise=None) -> float:
         """One step at scale ``s`` (drawn when None); ``t`` and ``noise``
-        inject the draws, a sequence of ``grad_accumulate`` tensors each.
-        Returns the step's loss."""
+        inject the draws, a sequence of ``grad_accumulate`` tensors each
+        (the whole batch's, under a mesh too). Returns the step's loss."""
         cfg = self.cfg
         if s is None:
             s = int(self._rng.choice(len(self._s_probs), p=self._s_probs))
-        x_orig, x_blur = self.data_list[s]
         with fp32_convs():
-            losses = [
-                training_loss(self.model_fn, self.sched, x_orig, x_blur, s=s, batch_size=cfg.train_batch_size,
-                              loss_type=self.diff_cfg.loss_type, generator=self.generator,
-                              t=None if t is None else t[g], noise=None if noise is None else noise[g])
-                for g in range(cfg.grad_accumulate)
-            ]
+            losses = [self._loss(s, None if t is None else t[g], None if noise is None else noise[g])
+                      for g in range(cfg.grad_accumulate)]
             loss = torch.stack(losses).mean()
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+        if self.mesh is not None:
+            loss = self._sum_over_world(loss)
         self.opt.step()
         self.scheduler.step()
         ema_update_(self.ema_model, self.model, self.step, cfg)
@@ -266,12 +312,20 @@ class MultiscaleTrainer:
     def save(self, milestone: int) -> Path:
         """Write ``model-{milestone}.pt`` (reference layout, plus Adam's state
         under ``opt``), ``model-{milestone}.loss.json`` and, where matplotlib
-        imports, ``running_loss.png``."""
+        imports, ``running_loss.png``; under a mesh on the primary rank only,
+        and every rank returns after the files are there."""
+        path = self.results_folder / f"model-{milestone}.pt"
+        if self.mesh is None or distributed.is_primary():
+            self._write(milestone, path)
+        if self.mesh is not None:
+            distributed.barrier()
+        return path
+
+    def _write(self, milestone: int, path: Path) -> None:
         payload = reference_payload(self.model, self.ema_model, self.sched, step=self.step,
                                     scheduler_state=self.scheduler.state_dict(), running_loss=self.running_loss,
                                     running_scale=self.running_scale)
         payload["opt"] = self.opt.state_dict()
-        path = self.results_folder / f"model-{milestone}.pt"
         torch.save(payload, path)
         (self.results_folder / f"model-{milestone}.loss.json").write_text(
             json.dumps({"running_loss": self.running_loss}))
@@ -281,14 +335,13 @@ class MultiscaleTrainer:
             matplotlib.use("Agg")
             from matplotlib import pyplot as plt
         except ImportError:
-            return path
+            return
         plt.figure(figsize=(16, 8))
         plt.plot(self.running_loss)
         plt.grid(True)
         plt.ylim((0, 0.2))
         plt.savefig(str(self.results_folder / "running_loss.png"))
         plt.close()
-        return path
 
     def latest_milestone(self) -> Optional[int]:
         return latest_milestone(self.results_folder)

@@ -3,7 +3,8 @@
 * :func:`phase_timer`: a phase's wall time, logged after the device has
   finished its queued work (PyTorch returns before the card does);
 * :func:`trace`: a ``torch.profiler`` trace of the host and, on a CUDA
-  device, of the card's kernels, written where TensorBoard opens it.
+  device, of the card's kernels, written where TensorBoard opens it; in a
+  world of ranks, one trace a rank, under ``rank{r}/``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+from sinddm_tpu_torch.parallel import distributed
 
 
 def sync(device="cuda") -> None:
@@ -42,8 +45,14 @@ def phase_timer(name: str, device="cuda", log: Optional[Callable[[str], None]] =
 def trace(log_dir, device="cuda"):
     """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
     activity on a CUDA device) and write a ``*.pt.trace.json`` under
-    ``log_dir`` (TensorBoard's profiler plugin, or chrome://tracing)."""
+    ``log_dir`` (TensorBoard's profiler plugin, or chrome://tracing), or
+    under ``log_dir/rank{r}`` on rank r of a world."""
+    from pathlib import Path
+
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    if distributed.is_initialized():
+        log_dir = Path(log_dir) / f"rank{distributed.process_index()}"
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":

@@ -18,8 +18,7 @@ from sinddm_tpu_torch.models.convert import flatten_tree, random_flax_params
 from torch_clip_draws import one_torch_thread  # noqa: F401  (fixture)
 
 # the JAX CLI's flags that the port does not take (the cli module's docstring says why)
-NOT_TAKEN = {"steps_per_chunk", "fused_mode", "precompile", "coordinator", "num_processes", "process_id",
-             "mesh_data", "mesh_spatial"}
+NOT_TAKEN = {"steps_per_chunk", "fused_mode", "precompile"}
 
 
 @pytest.fixture(scope="module")
@@ -102,14 +101,16 @@ def test_configs_keep_the_jax_defaults():
 
 
 def test_train_flags_keep_the_jax_defaults():
-    """The training flags are the JAX CLI's, with its defaults; the flags
-    that fuse steps into one XLA call and the mesh flags are not taken."""
+    """The training flags are the JAX CLI's, with its defaults, the mesh
+    flags among them; the flags that fuse steps into one XLA call are not
+    taken."""
     ours = vars(cli.build_parser().parse_args(["--mode", "train"]))
     theirs = vars(jax_build_parser().parse_args(["--mode", "train"]))
     train = {"train_batch_size", "grad_accumulate", "train_num_steps", "save_and_sample_every", "avg_window",
-             "train_lr", "sched_k_milestones", "load_milestone", "loss_factor", "load_reference_ckpt"}
+             "train_lr", "sched_k_milestones", "load_milestone", "loss_factor", "load_reference_ckpt",
+             "mesh_data", "mesh_spatial", "coordinator", "num_processes", "process_id"}
     assert train <= set(ours) and {k: ours[k] for k in train} == {k: theirs[k] for k in train}
-    assert not {"steps_per_chunk", "fused_mode", "mesh_data", "mesh_spatial", "coordinator"} & set(ours)
+    assert not {"steps_per_chunk", "fused_mode"} & set(ours)
 
 
 def test_train_mode_writes_checkpoints_and_resumes(dataset, tmp_path, capsys):
@@ -180,7 +181,7 @@ def test_every_mode_keeps_the_jax_flags_and_defaults(mode):
     assert choices(cli.build_parser()) == choices(jax_build_parser())
 
 
-@pytest.mark.parametrize("argv", [["--precompile"], ["--mesh_data", "2"], ["--steps_per_chunk", "4"]])
+@pytest.mark.parametrize("argv", [["--precompile"], ["--fused_mode", "grouped"], ["--steps_per_chunk", "4"]])
 def test_flags_not_taken_are_refused(argv, capsys):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["--mode", "sample"] + argv)

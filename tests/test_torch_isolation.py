@@ -1,12 +1,13 @@
 """The port stands alone and defaults to the card.
 
 * No file of ``sinddm_tpu_torch/``, nor ``chip_smoke.py``,
-  ``guided_check_spread.py`` or ``kernel_times.py``, imports JAX,
-  flax, optax, orbax, the third-party ``regex`` or the JAX package.
+  ``guided_check_spread.py``, ``kernel_times.py`` or the gloo worker of the
+  mesh tests (``tests/torch_dist_worker.py``), imports JAX, flax, optax,
+  orbax, the third-party ``regex`` or the JAX package.
 * Every entry point runs on ``cuda`` unless given ``device="cpu"``: on
   this CUDA-less build each raises instead of running on the CPU (the
-  bucketed walk, its via-scale sampler and the metric extractors among
-  them).
+  bucketed walk, its via-scale sampler, the metric extractors and joining
+  a world of ranks among them).
 * ``chip_smoke.py``, ``guided_check_spread.py`` and ``kernel_times.py``
   fail, printing no result, where there is no card.
 """
@@ -36,13 +37,15 @@ from sinddm_tpu_torch.models.clip.convert import clip_from_state_dict, random_cl
 from sinddm_tpu_torch.models.clip.model import tiny_clip_config
 from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_params
 from sinddm_tpu_torch.models.denoiser import SinDDMNet
+from sinddm_tpu_torch.parallel import distributed
 from sinddm_tpu_torch.schedules import make_schedules
 from sinddm_tpu_torch.utils.profiling import phase_timer, trace
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "regex", "sinddm_tpu"}
 SOURCES = sorted((ROOT / "sinddm_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "guided_check_spread.py", ROOT / "kernel_times.py"]
+    ROOT / "chip_smoke.py", ROOT / "guided_check_spread.py", ROOT / "kernel_times.py",
+    ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def _imported_roots(path: Path):
@@ -69,7 +72,8 @@ def test_scan_sees_the_whole_package():
             "sinddm_tpu_torch/guidance/roi.py", "sinddm_tpu_torch/apps/roi.py",
             "sinddm_tpu_torch/utils/profiling.py", "sinddm_tpu_torch/diffusion/bucketed.py",
             "sinddm_tpu_torch/metrics.py", "sinddm_tpu_torch/models/inception.py", "sinddm_tpu_torch/utils/flops.py",
-            "sinddm_tpu_torch/ops/augment_extra.py"} <= names
+            "sinddm_tpu_torch/ops/augment_extra.py", "sinddm_tpu_torch/parallel/mesh.py",
+            "sinddm_tpu_torch/parallel/distributed.py", "tests/torch_dist_worker.py"} <= names
 
 
 def test_tokenizer_reads_its_own_table_with_the_standard_library():
@@ -114,6 +118,8 @@ ENTRY_POINTS = {
     "make_roi_guidance": lambda: make_roi_guidance(_cpu_pyramid().images, [0, 0, 4, 4], [[2, 2, 4, 4]],
                                                    scale_factor=1.411, n_scales=2, s=0),
     "profiling.trace": lambda: trace("unused").__enter__(),
+    # a world asked for on the card needs a card: it never falls back to the CPU
+    "distributed.initialize": lambda: distributed.initialize("127.0.0.1:1", 2, 0),
     "profiling.phase_timer": lambda: phase_timer("unused").__enter__(),
 }
 
