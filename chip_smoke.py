@@ -53,17 +53,31 @@ each of which exits non-zero when it fails:
    warp kernels (``--warp_impl pallas``), then 3 denoising steps at the finest
    scale. Check shape, values, the score trace and the launch counts; hold
    one ascent iteration against the plain warp; profile a few iterations;
-8. training: ``--mode train`` through the CLI at dim=160, batch 32, on a
-   seeded synthetic 248x186 image (the balloons geometry; its rescale
+8. training: (a) ``--mode train`` through the CLI at dim=160, batch 32, on
+   a seeded synthetic 248x186 image (the balloons geometry; its rescale
    losses computed), 40 steps with a milestone every 20 (checkpoints,
    loss JSON, the EMA's scale-0 samples through kernels 1 and 2, the
-   post-train walk; finite losses and launch counts checked), then a resume
-   with ``--load_milestone -1``; one step against the same step in float64
+   post-train walk; finite losses and launch counts checked): the JAX
+   CLI's default, grouped chunks (cut at the milestones: every scale 4
+   times a chunk, checked) as CUDA-graph replays, then a resume with
+   ``--load_milestone -1``, then ``--steps_per_chunk 0`` and ``--fused_mode
+   padded``; one step against the same step in float64
    (``step_vs_float64``) at the coarsest and the finest scale over a few
-   seeds, and its control, a step in TF32; the step time and peak memory of
-   every scale; one profiled step at the finest scale. cuDNN's TF32 is on
-   in this phase, PyTorch's default, so the trainer's own scope is what
-   keeps its steps in fp32;
+   seeds, and its control, a step in TF32; (b) a graph trainer against an
+   eager one, step by step at every scale and on the padded canvas, with
+   an lr milestone inside the replays of each: the draws equal, the losses
+   and the parameters, the graph pool's size and the captures' seconds;
+   and its controls, a graph trainer with a fault planted in its captures
+   (gradients not zeroed, the lr a number, the generator not registered),
+   each of which must break a bound or fail to capture; (c) a padded step against the true-shape step at
+   every scale; (d) the step time of every scale per step, in an eager
+   chunk and as graph replays, the peak memory, profiles of per-step steps
+   and of replays at the coarsest and the finest scale (idle share, kernels
+   a step) and one profiled step by group; (e) a graph run's checkpoint
+   resumed by a new trainer, and through a CPU trainer and back; (f)
+   ``--precompile`` from a cold build directory, then warm. cuDNN's TF32 is
+   on in this phase, PyTorch's default, so the trainer's own scope is what
+   keeps its steps, and its captures, in fp32;
 9. image-to-image and ROI on the trained balloons-120k EMA weights
    (``weights/balloons-120k-ema.npz``, ``--load_checkpoint``): through the CLI
    at dim=160, batch 16, fp32, on phase 8's seeded 248x186 image with a
@@ -105,7 +119,8 @@ each of which exits non-zero when it fails:
    the same seeds, computed here: (a) phase 5's B=16 walk, with the walls,
    the gather's time a denoiser call and summed over one more split walk
    (CUDA events) and the launches of kernels 1 and 2 per rank; (b) three train steps at dim 160, batch 32 (s
-   = 0, 4, 4): the losses and the parameters against the single process's,
+   = 0, 4, 4), then a grouped chunk of a step a scale (uncaptured in a
+   world): the losses and the parameters against the single process's,
    the parameters bit-equal across ranks, and a batch-8 step against
    float64 at s = 0 and 4; (c) under ``data=2``, one guidance iteration at
    batch 16 and a batch-4 ``clip_content`` walk (launches of kernels 1, 2,
@@ -156,7 +171,8 @@ Tolerances (max |kernel - plain| against the plain version's values):
     max |feature|, the SIFID of two samples within 1e-3 relative;
   * phase 11, a world against the single process on the same seeds: the
     walk 2e-3 absolute (the batch-2 walk's bound; it read 0.0), every rank
-    equal; a train step's loss TRAIN_LOSS_TOL relative, the parameters after
+    equal; a train step's loss TRAIN_LOSS_TOL relative (the chunk's after
+    them GRAPH_LOSS_TOL, the scales equal), the parameters after
     two steps within 1e-2 lr for all but TRAIN_UPDATE_SHARE of the elements,
     bit-equal across ranks after three, the step against float64 phase 8's
     bounds; the guidance iteration the GUIDE bounds; the batch-4 guided walk
@@ -196,6 +212,19 @@ Tolerances (max |kernel - plain| against the plain version's values):
   * one guidance iteration with the bf16 vision tower against the fp32 one:
     finite, the loss within 2e-2 relative (bf16 keeps ~3 digits); the
     gradients' cosine is printed, not bounded;
+  * a graph trainer against an eager trainer from the same seed (batch 32,
+    6 steps a scale and 6 padded steps): the draws (t, noise, the padded
+    scale) equal, each loss within GRAPH_LOSS_TOL relative (two eager
+    trainers differ too: cuDNN's backward is not bitwise repeatable, and
+    Adam carries the last bits to ~1e-5 in six steps), the parameters
+    within 1e-2 lr for all but TRAIN_UPDATE_SHARE of the elements, an lr
+    milestone crossed inside the replays; a graph trainer with a fault
+    planted in its captures must break one of these bounds or fail to
+    capture; a checkpoint's resume: the scales equal, the losses GRAPH_LOSS_TOL;
+  * a padded step against the true-shape step on the same valid-region
+    draws (batch 8): the loss within TRAIN_LOSS_TOL relative, the gradients
+    within TRAIN_GRAD_TOL of the largest (cuDNN picks its algorithms by
+    shape, the canvas's others);
   * one train step, fp32 in the trainer's scope, against float64 (batch 8,
     dim 160, the same weights and draws): the loss within 1e-5 relative,
     the largest gradient error within 1e-4 of the largest gradient, and
@@ -213,6 +242,8 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
+import gc
 import json
 import re
 import subprocess
@@ -267,6 +298,20 @@ ROI_BOX = (48, 64, 96, 128)  # y x h w: a quarter of the 186x248 image, views of
 # the train phase: the CLI's default batch, steps to two milestones; one step
 # against float64 at a smaller batch over a few seeds, and its bounds
 TRAIN_BATCH, TRAIN_STEPS = 32, 40
+# graph against eager: steps at each scale (the first GRAPH_WARMUP_STEPS of a
+# shape eager, then replays); steps timed a scale; steps a profile
+GRAPH_CHECK_STEPS, TRAIN_TIME_STEPS, TRAIN_PROFILE_STEPS = 6, 5, 3
+# a free-running graph chunk's losses against the eager chunk's: the card's
+# cuDNN backward is not bitwise repeatable (two eager steps from one state
+# differ by ~1e-7 at the second step), and Adam carries that to ~1e-5 within
+# six steps (1.3e-5 on an H100 80GB HBM3 at 700 W); a wrong step (stale draws, lr or Adam
+# count, unzeroed gradients) moves a loss or the parameters by far more, as
+# (b)'s controls, which plant such faults, show
+GRAPH_LOSS_TOL = 1e-4
+# (b)'s lr milestones, one inside the grouped replays (steps 10-29), one
+# inside the padded replays (32-35), and the faults its controls plant
+GRAPH_CHECK_MILESTONES = (20, 34)
+GRAPH_FAULTS = ("unzeroed", "baked_lr", "unregistered")
 TRAIN_CHECK_BATCH, TRAIN_CHECK_SEEDS = 8, 5
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_SHARE = 1e-5, 1e-4, 1e-3
 # phase 9: the trained weights, a seeded i2i input (W x H) with a mask box
@@ -792,64 +837,88 @@ def i2i_roi_phase() -> dict:
 def train_phase(results) -> dict:
     """Phase 8: ``--mode train`` through the CLI at full width on a seeded
     synthetic 248x186 image (the balloons geometry, rescale losses
-    computed), a resume, one step against float64, and the step time and
-    memory of every scale. cuDNN's TF32 is on here, PyTorch's default, so
-    it is the trainer's own scope that keeps its steps in fp32."""
+    computed): the JAX CLI's default (grouped chunks, CUDA-graph replays),
+    a resume, ``--steps_per_chunk 0`` and ``--fused_mode padded``; one step
+    against float64; the graph chunks against the eager chunks; the padded
+    step against the true-shape step; the step time and memory of every
+    scale, per step, in an eager chunk and in graph replays; a graph run's
+    checkpoint resumed; ``--precompile``. cuDNN's TF32 is on here,
+    PyTorch's default, so it is the trainer's own scope that keeps its steps
+    (and its captures) in fp32."""
     import contextlib
 
     import numpy as np
 
-    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
-    from sinddm_tpu_torch.models.denoiser import SinDDMNet
     from sinddm_tpu_torch.ops import conv_block as cb
     from sinddm_tpu_torch.pyramid import build_pyramid
     from sinddm_tpu_torch.schedules import make_schedules
     from sinddm_tpu_torch.training import trainer as trainer_mod
-    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer, step_vs_float64
-    from sinddm_tpu_torch.utils.flops import denoiser_flops_per_pixel
+    from sinddm_tpu_torch.training.trainer import step_vs_float64
 
     tmp, data = synthetic_dataset()
     out = Path(tmp.name) / "results"
     argv = ["--mode", "train", "--dataset_folder", str(data), "--image_name", "synthetic.png",
-            "--results_folder", str(out), "--scope", "train", "--dim", str(DIM),
-            "--train_batch_size", str(TRAIN_BATCH), "--save_and_sample_every", str(TRAIN_STEPS // 2),
-            "--avg_window", "10", "--sample_batch_size", str(BATCH)]
-
-    def drive(extra):
-        torch.cuda.reset_peak_memory_stats()
-        _, wall, launches, text = run_cli("train cli", argv + extra)
-        losses = [float(m) for m in re.findall(r"^step:\d+ loss:(\S+)", text, re.M)]
-        return wall, text, losses, launches
-
-    folder = out / "train"
-    wall, text, losses, launches = drive(["--train_num_steps", str(TRAIN_STEPS)])
+            "--results_folder", str(out), "--dim", str(DIM), "--train_batch_size", str(TRAIN_BATCH),
+            "--save_and_sample_every", str(TRAIN_STEPS // 2), "--avg_window", "10", "--sample_batch_size",
+            str(BATCH)]
     pyramid = build_pyramid(str(data / "synthetic.png"))
-    sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=pyramid.n_scales,
-                           device="cuda")
+    n = pyramid.n_scales
+    sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=n, device="cuda")
     sizes_hw = [tuple(hw) for hw in pyramid.sizes_hw]
+    if sizes_hw != BALLOONS_SIZES_HW:
+        fail(f"the synthetic image's pyramid {sizes_hw} != the balloons geometry {BALLOONS_SIZES_HW}")
     # the kernels ran in the milestones' scale-0 samples and the post-train walk
     calls = 2 * sched.num_timesteps + sum(sched.num_timesteps_ideal)
     expect = {"conv_block": calls * 4 * cb.LAUNCHES_PER_BLOCK, "dw_conv": calls * 4}
-    ckpt = torch.load(folder / "model-2.pt", map_location="cpu", weights_only=True)
-    say(f"[train] --mode train dim {DIM} batch {TRAIN_BATCH} scales {sizes_hw} {TRAIN_STEPS} steps wall_s "
-        f"{wall:.3f} (milestones, their samples and the post-train walk included) losses {losses} peak_GB "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches {launches}")
-    if sizes_hw != BALLOONS_SIZES_HW:
-        fail(f"the synthetic image's pyramid {sizes_hw} != the balloons geometry {BALLOONS_SIZES_HW}")
-    if len(losses) != TRAIN_STEPS // 10 or not all(np.isfinite(losses)):
-        fail(f"--mode train logged {losses}: not {TRAIN_STEPS // 10} finite window losses")
-    for name in ("model-1.pt", "model-2.pt", "model-2.loss.json", "sample-1.png", "sample-2.png"):
-        if not (folder / name).exists():
-            fail(f"--mode train wrote no {name}")
-    if ckpt["step"] != TRAIN_STEPS or not {"model", "ema", "sched", "opt"} <= set(ckpt):
-        fail(f"model-2.pt holds step {ckpt['step']} and keys {sorted(ckpt)}")
-    if launches != expect:
-        fail(f"--mode train launch counts {launches} != expected {expect}")
-    r_wall, r_text, r_losses, _ = drive(["--train_num_steps", str(TRAIN_STEPS + 10), "--load_milestone", "-1"])
+
+    def drive(scope, extra, what):
+        """One --mode train run to TRAIN_STEPS with milestones every
+        TRAIN_STEPS // 2: files, finite window losses, the launches of the
+        kernels (the sampling only: a train step launches none), and the
+        scales visited in each chunk (a milestone ends a chunk)."""
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, launches, text = run_cli(f"train cli {scope}", argv + ["--scope", scope] + extra)
+        losses = [float(m) for m in re.findall(r"^step:\d+ loss:(\S+)", text, re.M)]
+        folder = out / scope
+        ckpt = torch.load(folder / "model-2.pt", map_location="cpu", weights_only=True)
+        half = TRAIN_STEPS // 2
+        counts = [np.bincount(ckpt["running_scale"][i : i + half], minlength=n).tolist()
+                  for i in (0, half)]
+        say(f"[train] --mode train {what}: dim {DIM} batch {TRAIN_BATCH} {TRAIN_STEPS} steps wall_s {wall:.3f} "
+            f"(milestones, their samples and the post-train walk included) losses {losses} visits per scale in "
+            f"steps 0-{half - 1}, {half}-{TRAIN_STEPS - 1}: {counts} peak_GB "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} launches {launches}")
+        if len(losses) != TRAIN_STEPS // 10 or not all(np.isfinite(losses)):
+            fail(f"--mode train {what} logged {losses}: not {TRAIN_STEPS // 10} finite window losses")
+        for name in ("model-1.pt", "model-2.pt", "model-2.loss.json", "sample-1.png", "sample-2.png"):
+            if not (folder / name).exists():
+                fail(f"--mode train {what} wrote no {name}")
+        if ckpt["step"] != TRAIN_STEPS or not {"model", "ema", "sched", "opt", "rng"} <= set(ckpt):
+            fail(f"{what}: model-2.pt holds step {ckpt['step']} and keys {sorted(ckpt)}")
+        if launches != expect:
+            fail(f"--mode train {what} launch counts {launches} != expected {expect}")
+        return {"wall_s": wall, "losses": losses, "visits": counts}, text
+
+    # (a) the JAX CLI's default, then a resume, the per-step path and the padded chunks
+    drives = {}
+    drives["grouped"], _ = drive("train", ["--train_num_steps", str(TRAIN_STEPS)],
+                                 "(JAX default: --steps_per_chunk 100 --fused_mode grouped)")
+    if any(len(set(c)) != 1 for c in drives["grouped"]["visits"]):
+        fail(f"a grouped chunk visited the scales unequally: {drives['grouped']['visits']}")
+    torch.cuda.reset_peak_memory_stats()
+    _, r_wall, _, r_text = run_cli("train cli train", argv + ["--scope", "train", "--train_num_steps",
+                                                             str(TRAIN_STEPS + 10), "--load_milestone", "-1"])
+    r_losses = [float(m) for m in re.findall(r"^step:\d+ loss:(\S+)", r_text, re.M)]
     say(f"[train resume] --load_milestone -1 to step {TRAIN_STEPS + 10}: wall_s {r_wall:.3f} losses {r_losses}")
     if f"resumed at step {TRAIN_STEPS}" not in r_text or len(r_losses) != 1 or not np.isfinite(r_losses[0]):
         fail("--load_milestone -1 did not resume at the last milestone's step")
-    del ckpt
+    drives["per_step"], _ = drive("train_per_step", ["--train_num_steps", str(TRAIN_STEPS), "--steps_per_chunk", "0"],
+                                  "--steps_per_chunk 0")
+    drives["padded"], _ = drive("train_padded", ["--train_num_steps", str(TRAIN_STEPS), "--fused_mode", "padded"],
+                                "--fused_mode padded")
+    wall, losses = drives["grouped"]["wall_s"], drives["grouped"]["losses"]
+
+    new_trainer = functools.partial(train_trainer, sched, pyramid, Path(tmp.name))
 
     # one step against float64, at the coarsest and the finest scale; the
     # bounds hold the spread measured over seeds (PERF.md). Then the
@@ -857,9 +926,7 @@ def train_phase(results) -> dict:
     # so cuDNN runs the step in TF32; it must break a bound, or the bounds
     # cannot tell a TF32 step from an fp32 one
     def check(s, seed):  # a fresh trainer each: its first step, from seeded weights
-        trainer = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid,
-                                    TrainConfig(train_batch_size=TRAIN_CHECK_BATCH), DiffusionConfig(),
-                                    folder / "check", seed=seed, device="cuda")
+        trainer = new_trainer("check", batch=TRAIN_CHECK_BATCH, seed=seed)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         x_orig = trainer.data_list[s][0]
         t = torch.randint(0, sched.num_timesteps_trained[s], (TRAIN_CHECK_BATCH,), generator=gen, device="cuda")
@@ -876,7 +943,7 @@ def train_phase(results) -> dict:
             f"{e['change_share']:.3e} (<= {TRAIN_UPDATE_SHARE:g}) {'within' if ok else 'OUT OF'} bounds")
 
     errors, control = {}, {}
-    for s in (0, pyramid.n_scales - 1):
+    for s in (0, n - 1):
         for seed in range(TRAIN_CHECK_SEEDS):
             e, ok = check(s, seed)
             show("fp32", s, seed, e, ok)
@@ -893,29 +960,480 @@ def train_phase(results) -> dict:
         if ok:
             fail(f"a TF32 train step at s={s} passes the fp32 step's bounds: they cannot tell the two apart")
 
-    # the step time of every scale at batch TRAIN_BATCH (CUDA events), its
-    # peak memory, and one profiled step at the finest scale
-    trainer = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid,
-                                TrainConfig(train_batch_size=TRAIN_BATCH), DiffusionConfig(), folder / "time",
-                                seed=0, device="cuda")
-    step_ms, peak_gb = {}, {}
-    for s in range(pyramid.n_scales):
-        trainer.train_step(s=s)
+    # (b)-(e) in a child process: they hold a graph pool of ~35 GB beside a
+    # trainer's eager steps, and the child's exit hands all of it back for
+    # the phases after this one. This process's cache goes back first
+    held = release_cache("the train worker")
+    checks = run_train_worker(Path(tmp.name))
+
+    # (f) --precompile from a cold build directory, then warm
+    precompile = precompile_check(data, Path(tmp.name))
+    tmp.cleanup()
+    return {"wall_s": wall, "losses": losses, "resume_wall_s": r_wall, "drives": drives, "vs_float64": errors,
+            "tf32_control_vs_float64": control, "held_before_worker": held, **checks, "precompile": precompile}
+
+
+def train_trainer(sched, pyramid, work, folder, batch=TRAIN_BATCH, seed=0, **cfg):
+    """Phase 8's trainer on the card: dim 160, the JAX CLI's training
+    defaults but the batch (and the ``TrainConfig`` fields in ``cfg``),
+    results under ``work / folder``."""
+    from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
+    from sinddm_tpu_torch.models.denoiser import SinDDMNet
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer
+
+    return MultiscaleTrainer(SinDDMNet(dim=DIM, device="cuda"), sched, pyramid,
+                             TrainConfig(train_batch_size=batch, **cfg), DiffusionConfig(), Path(work) / folder,
+                             seed=seed, device="cuda")
+
+
+def release_cache(what: str) -> dict:
+    """Hand this process's cached device memory back before ``what``: the
+    free blocks and cuBLAS's workspaces. cuBLAS keeps one workspace for
+    each stream and thread for the life of the process, and the segment a
+    workspace was cut from cannot be freed, so a train step's backward can
+    leave GBs reserved that no tensor uses. Prints and returns what this
+    process still holds."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    held = {"reserved_GB": torch.cuda.memory_reserved() / 1e9, "allocated_GB": torch.cuda.memory_allocated() / 1e9,
+            "graph_pool_GB": graph_pool_gb(), "card_free_GB": torch.cuda.mem_get_info()[0] / 1e9}
+    say(f"[memory] before {what} this process holds {held['reserved_GB']:.2f} GB ({held['allocated_GB']:.2f} "
+        f"allocated, {held['graph_pool_GB']:.2f} in graph pools); the card has {held['card_free_GB']:.2f} GB free")
+    return held
+
+
+def run_train_worker(work) -> dict:
+    """Phase 8 (b)-(e) in ``chip_smoke.py --train-worker WORK``: its lines
+    print here; it fails the phase by exiting non-zero; its numbers come
+    back in ``WORK/train_worker.json``."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-worker", str(work)],
+                              cwd=ROOT, timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("phase 8's train worker ran past 900 s")
+    if proc.returncode != 0:
+        fail(f"phase 8's train worker exited {proc.returncode}")
+    out = json.loads((Path(work) / "train_worker.json").read_text())
+    say(f"[train worker] (b)-(e) in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def train_worker(argv) -> None:
+    """``chip_smoke.py --train-worker WORK``: phase 8's graph checks on the
+    seeded synthetic image written into WORK, with phase 8's TF32 setting
+    (on, so the trainer's own scope keeps fp32): (b) the graph chunks
+    against the eager chunks, (d) the step times, (c) the padded step
+    against the true-shape step, (e) a graph run's checkpoint resumed; the
+    numbers into WORK/train_worker.json. One trainer at a time on the card,
+    each dropped before the next is made."""
+    work = Path(argv[0])
+    sys.path.insert(0, str(ROOT))
+    from sinddm_tpu_torch.pyramid import build_pyramid
+    from sinddm_tpu_torch.schedules import make_schedules
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pyramid = build_pyramid(str(synthetic_image(work)))
+    n = pyramid.n_scales
+    sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=n, device="cuda")
+    sizes_hw = [tuple(hw) for hw in pyramid.sizes_hw]
+
+    new_trainer = functools.partial(train_trainer, sched, pyramid, work)
+
+    def release():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()  # see release_cache
+        torch.cuda.empty_cache()
+
+    # (b) the graph trainer's steps, then (d) the step times on it (the three
+    # executors on one trainer run the same cuDNN plans); then the eager
+    # trainer's same steps from the same seed, held against them. One
+    # trainer at a time: the graphs' pool is ~35 GB
+    plan = graph_plan(n)
+    graph_tr = new_trainer("graph", sched_milestones=GRAPH_CHECK_MILESTONES)
+    lr = float(graph_tr.opt.param_groups[0]["lr"])
+    torch.cuda.reset_peak_memory_stats()
+    graph_run = run_plan(graph_tr, plan, sizes_hw)
+    pool = {"graphs": len(graph_tr._graphs), "graph_pool_GB": graph_pool_gb(),
+            "peak_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "capture_s": {"/".join(map(str, k)): v for k, v in graph_tr.capture_seconds.items()}}
+    say(f"[train graphs] capture seconds (synchronize, gc, the step's host work, instantiate) {pool['capture_s']}")
+    say(f"[train graphs] {pool['graphs']} graphs alive (five scales, the canvas) in one pool of "
+        f"{pool['graph_pool_GB']:.2f} GB; peak allocated {pool['peak_allocated_GB']:.2f} GB (the per-step "
+        f"path's finest step: 27.67 GB, PERF.md)")
+    out = train_step_times(graph_tr, n, sizes_hw)
+    del graph_tr
+    release()
+    eager_tr = new_trainer("eager", sched_milestones=GRAPH_CHECK_MILESTONES)
+    eager_tr.use_graphs = False
+    eager_run = run_plan(eager_tr, plan, sizes_hw)
+    del eager_tr
+    release()
+    out["graph_vs_eager"] = graph_vs_eager(graph_run, eager_run, n, sizes_hw, lr) | pool
+    out["graph_fault_controls"] = graph_fault_controls(new_trainer, plan, eager_run, n, sizes_hw, lr, release)
+    # (c) the padded step against the true-shape step on the same draws
+    out["padded_vs_true_shape"] = padded_vs_true_shape(new_trainer, n, sizes_hw)
+    release()
+    # (e) a graph run's checkpoint resumed, on the card and through the CPU
+    out["graph_resume"] = graph_resume(new_trainer, n, release)
+    (work / "train_worker.json").write_text(json.dumps(out, default=str))
+
+
+def plant_graph_fault(tr, fault: str) -> None:
+    """Plant ``fault`` in the captures of graph trainer ``tr``, a control of
+    the graph-vs-eager bounds: ``unzeroed``, the graph does not zero the
+    gradients (each replay adds to the last step's); ``baked_lr``, the
+    learning rate is a number at capture (the replays keep it past a
+    milestone); ``unregistered``, the device generator is not registered
+    with the graph."""
+    capture, graph_cls = tr._capture, torch.cuda.CUDAGraph
+
+    class Unregistered(graph_cls):
+        def register_generator_state(self, generator):
+            pass
+
+    def planted(step_fn):
+        group = tr.opt.param_groups[0]
+        lr = group["lr"]
+        if fault == "unzeroed":
+            tr.opt.zero_grad = lambda set_to_none=True: None
+        elif fault == "baked_lr":
+            group["lr"] = float(lr)
+        elif fault == "unregistered":
+            torch.cuda.CUDAGraph = Unregistered
+        else:
+            raise ValueError(f"no fault {fault!r}")
+        try:
+            return capture(step_fn)
+        finally:
+            tr.opt.__dict__.pop("zero_grad", None)
+            group["lr"] = lr
+            torch.cuda.CUDAGraph = graph_cls
+
+    tr._capture = planted
+
+
+def graph_fault_controls(new_trainer, plan, eager_run, n, sizes_hw, lr, release) -> dict:
+    """Phase 8 (b)'s controls: its grouped steps (the lr milestone inside
+    the replays) on a graph trainer with each of GRAPH_FAULTS planted in its
+    captures, against the eager run. Each must break GRAPH_LOSS_TOL, the
+    parameter bound or the equal draws, or fail to capture."""
+    grouped = [step for step in plan if step[0] != "padded"]
+    out = {}
+    for fault in GRAPH_FAULTS:
+        tr = new_trainer("fault", sched_milestones=GRAPH_CHECK_MILESTONES)
+        plant_graph_fault(tr, fault)
+        try:
+            run = run_plan(tr, grouped, sizes_hw)
+        except RuntimeError as e:
+            r = {"raised": str(e).strip().splitlines()[0][:160]}
+            caught = True
+            shown = f"the capture raised: {r['raised']}"
+        else:
+            pairs = [(g, e) for s in range(n) for g, e in zip(run["rows"][s], eager_run["rows"][s])]
+            off = torch.cat([((g - e).abs() / lr).flatten()
+                             for g, e in zip(run["params"]["grouped"], eager_run["params"]["grouped"])])
+            r = {"loss_rel": max(abs(g[0] - e[0]) / abs(e[0]) for g, e in pairs),
+                 "draws_equal": all(torch.equal(g[1], e[1]) and torch.equal(g[2], e[2]) for g, e in pairs),
+                 "param_share": share_over(off, 1e-2), "param_max_lr": off.max().item()}
+            caught = (r["loss_rel"] > GRAPH_LOSS_TOL or r["param_share"] > TRAIN_UPDATE_SHARE
+                      or not r["draws_equal"])
+            shown = (f"largest loss rel {r['loss_rel']:.3e} (bound {GRAPH_LOSS_TOL:g}), parameters share over "
+                     f"1e-2 lr {r['param_share']:.3e} (bound {TRAIN_UPDATE_SHARE:g}), largest "
+                     f"{r['param_max_lr']:.3e} lr, draws equal {r['draws_equal']}")
+        say(f"[check train graph vs eager, control: {fault} planted in the captures] {shown} "
+            f"{'caught' if caught else 'FAIL: within every bound'}")
+        if not caught:
+            fail(f"a graph trainer with {fault} planted passes the graph-vs-eager bounds")
+        out[fault] = r
+        del tr
+        release()
+    return out
+
+
+def record_draws(store):
+    """Patch the port's draw functions (``training_draws``, ``canvas_draws``)
+    to keep what the last call of each function at each noise shape
+    returned in ``store[(name, shape)]``; returns the undo. A captured
+    step's draws are its graph's tensors, which each replay rewrites."""
+    from sinddm_tpu_torch.diffusion import core
+
+    originals = {name: getattr(core, name) for name in ("training_draws", "canvas_draws")}
+
+    def wrap(name, fn):
+        def recorded(*args, **kw):
+            t, noise = fn(*args, **kw)
+            store[(name, tuple(noise.shape))] = (t, noise)
+            return t, noise
+        return recorded
+
+    for name, fn in originals.items():
+        setattr(core, name, wrap(name, fn))
+    return lambda: [setattr(core, name, fn) for name, fn in originals.items()]
+
+
+@torch.no_grad()  # no autograd graph on a trainer's parameters: it would break that trainer's next capture
+def params_off_in_lr(a, b, lr) -> torch.Tensor:
+    """|a - b| / lr over every parameter of two models, flattened."""
+    return torch.cat([((p - q).abs() / lr).flatten() for p, q in zip(a.parameters(), b.parameters())])
+
+
+def graph_pool_gb() -> float:
+    """GB of the caching allocator's segments outside its default pool: the
+    CUDA graphs' private pools."""
+    segments = torch.cuda.memory._snapshot()["segments"]
+    return sum(seg["total_size"] for seg in segments if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
+
+
+def graph_plan(n) -> list:
+    """Phase 8 (b)'s steps, (scale or "padded", count): GRAPH_WARMUP_STEPS at
+    every scale (the warm-up), GRAPH_CHECK_STEPS - GRAPH_WARMUP_STEPS more
+    at every scale (a graph trainer captures the five scales' graphs, the
+    largest first, and replays them), then GRAPH_CHECK_STEPS padded steps
+    (warm-up, the canvas's capture, replays)."""
+    from sinddm_tpu_torch.training.trainer import GRAPH_WARMUP_STEPS
+
+    return ([(s, GRAPH_WARMUP_STEPS) for s in range(n)]
+            + [(s, GRAPH_CHECK_STEPS - GRAPH_WARMUP_STEPS) for s in range(n)] + [("padded", GRAPH_CHECK_STEPS)])
+
+
+def run_plan(tr, plan, sizes_hw) -> dict:
+    """``plan``'s steps on trainer ``tr``, one a call: each step's loss and
+    draws (t, the noise; copied to the host) and the parameters after the
+    grouped and after the padded steps."""
+    store = {}
+    rows = collections.defaultdict(list)
+    params = {}
+    for i, (s, k) in enumerate(plan):
+        h, w = sizes_hw[-1 if s == "padded" else s]
+        key = ("canvas_draws" if s == "padded" else "training_draws", (TRAIN_BATCH, h, w, 3))
+        for _ in range(k):
+            undo = record_draws(store)
+            try:
+                loss = torch.from_numpy(tr.train_chunk(1))[0] if s == "padded" else tr.train_scale(s, 1)[0]
+            finally:
+                undo()
+            t, noise = store[key]  # a captured step's are its graph's tensors, this replay's draws
+            rows[s].append((loss.item(), t.cpu(), noise.cpu()))
+        if i in (len(plan) - 2, len(plan) - 1):  # the grouped steps, then the padded ones, done
+            params["padded" if s == "padded" else "grouped"] = [p.detach().cpu().clone() for p in tr.model.parameters()]
+    return {"rows": rows, "params": params, "scales": list(tr.running_scale),
+            "captured": sorted("/".join(map(str, k)) for k in tr._graphs)}
+
+
+def graph_vs_eager(graph_run, eager_run, n, sizes_hw, lr) -> dict:
+    """Phase 8 (b): the graph trainer's run of ``graph_plan`` against an
+    eager trainer's from the same seed: each step's loss (relative error)
+    and draws (t, the noise and, padded, the scale: equal), and the
+    parameters after the grouped and after the padded steps."""
+    from sinddm_tpu_torch.training.trainer import GRAPH_WARMUP_STEPS
+
+    out = {"steps": GRAPH_CHECK_STEPS, "warmup_steps": GRAPH_WARMUP_STEPS, "scales": {},
+           "captured": graph_run["captured"]}
+    scales_equal = graph_run["scales"] == eager_run["scales"]
+    all_ok = scales_equal
+    for s in list(range(n)) + ["padded"]:
+        pairs = list(zip(graph_run["rows"][s], eager_run["rows"][s]))
+        r = {"loss_rel": [abs(g[0] - e[0]) / abs(e[0]) for g, e in pairs],
+             "t_diff": max((g[1] - e[1]).abs().max().item() for g, e in pairs),
+             "noise_diff": max((g[2] - e[2]).abs().max().item() for g, e in pairs),
+             "captured": ("canvas" if s == "padded" else f"scale/{s}") in graph_run["captured"]}
+        ok = r["captured"] and r["t_diff"] == 0 and r["noise_diff"] == 0 and max(r["loss_rel"]) <= GRAPH_LOSS_TOL
+        all_ok &= ok
+        where = f"s={s} {sizes_hw[s]}" if s != "padded" else f"padded canvas {sizes_hw[-1]}"
+        say(f"[check train graph vs eager {where} batch {TRAIN_BATCH}, {GRAPH_CHECK_STEPS} steps, the first "
+            f"{GRAPH_WARMUP_STEPS} eager warm-up] loss rel per step {[f'{v:.2e}' for v in r['loss_rel']]} "
+            f"(<= {GRAPH_LOSS_TOL:g}) max |t diff| {r['t_diff']} max |noise diff| {r['noise_diff']:.3e} (== 0) "
+            f"graph captured {r['captured']} {'ok' if ok else 'FAIL'}")
+        out["scales"][str(s)] = r
+    for name in ("grouped", "padded"):
+        off = torch.cat([((g - e).abs() / lr).flatten()
+                         for g, e in zip(graph_run["params"][name], eager_run["params"][name])])
+        p = {"max_lr": off.max().item(), "share": share_over(off, 1e-2)}
+        ok = p["share"] <= TRAIN_UPDATE_SHARE
+        all_ok &= ok
+        say(f"[check train graph vs eager parameters after the {name} steps] max diff {p['max_lr']:.3e} lr, share "
+            f"over 1e-2 lr {p['share']:.3e} (<= {TRAIN_UPDATE_SHARE:g}); scales visited equal {scales_equal} "
+            f"{'ok' if ok else 'FAIL'}")
+        out[f"params_after_{name}"] = p
+    if not all_ok:
+        fail("a graph chunk disagrees with the eager chunk")
+    return out
+
+
+def padded_vs_true_shape(new_trainer, n, sizes_hw) -> dict:
+    """Phase 8 (c): at each scale one padded step (the scale a device
+    tensor, the canvas in the mask mode) against one true-shape step from
+    the same parameters, on the canvas draws' valid region, at batch
+    TRAIN_CHECK_BATCH: the loss's relative error and the largest gradient
+    error over the largest gradient."""
+    padded, true_shape = new_trainer("padded_check", batch=TRAIN_CHECK_BATCH), new_trainer(
+        "true_check", batch=TRAIN_CHECK_BATCH)
+    start = {k: v.clone() for k, v in padded.model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hm, wm = sizes_hw[-1]
+    out = {}
+    for s in range(n):
+        h, w = sizes_hw[s]
+        padded.model.load_state_dict(start)
+        true_shape.model.load_state_dict(start)
+        t = torch.randint(0, 100, (TRAIN_CHECK_BATCH,), generator=gen, device="cuda")
+        noise = torch.randn((TRAIN_CHECK_BATCH, hm, wm, 3), generator=gen, device="cuda")
+        loss_p, _ = padded._step(torch.tensor(s, device="cuda"), t=[t], noise=[noise])
+        loss_t, _ = true_shape._step(s, t=[t], noise=[noise[:, :h, :w].contiguous()])
+        g_max = max(p.grad.abs().max().item() for p in true_shape.model.parameters())
+        g_err = max((p.grad - q.grad).abs().max().item()
+                    for p, q in zip(padded.model.parameters(), true_shape.model.parameters()))
+        r = {"loss_rel": abs(loss_p.item() - loss_t.item()) / abs(loss_t.item()), "grad_rel": g_err / g_max}
+        ok = r["loss_rel"] <= TRAIN_LOSS_TOL and r["grad_rel"] <= TRAIN_GRAD_TOL
+        say(f"[check train padded vs true shape s={s} {h}x{w} on the {hm}x{wm} canvas, batch {TRAIN_CHECK_BATCH}] "
+            f"loss rel {r['loss_rel']:.3e} (<= {TRAIN_LOSS_TOL:g}) max|dg|/max|g| {r['grad_rel']:.3e} "
+            f"(<= {TRAIN_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the padded step at s={s} disagrees with the true-shape step")
+        out[s] = r
+    return out
+
+
+def train_step_times(graph_tr, n, sizes_hw) -> dict:
+    """Phase 8 (d): ms a step at every scale, batch TRAIN_BATCH (CUDA
+    events), all on the one trainer whose graphs (b) captured, so that the
+    three run the same cuDNN plans: ``train_step`` (one step a call, the loss
+    fetched each), an eager chunk (``train_scale`` with ``use_graphs`` off)
+    and graph replays; the peak memory of a per-step step; profiles of
+    TRAIN_PROFILE_STEPS steps at the coarsest and the finest scale, per
+    step against graph replays (device busy time, idle share, kernels a
+    step), and the finest per-step step by kernel group."""
+    from sinddm_tpu_torch.utils.flops import denoiser_flops_per_pixel
+
+    def eager_chunk(s, k):
+        graph_tr.use_graphs = False
+        try:
+            graph_tr.train_scale(s, k)
+        finally:
+            graph_tr.use_graphs = True
+
+    ms = {"per_step": {}, "eager_chunk": {}, "graph": {}}
+    peak_gb = {}
+    for s in range(n):
+        graph_tr.train_step(s=s)
         torch.cuda.reset_peak_memory_stats()
-        step_ms[s] = time_ms(lambda: trainer.train_step(s=s), reps=5, warm=1)
+        ms["per_step"][s] = time_ms(lambda: graph_tr.train_step(s=s), reps=TRAIN_TIME_STEPS, warm=1)
         peak_gb[s] = torch.cuda.max_memory_allocated() / 1e9
+        ms["eager_chunk"][s] = time_ms(lambda: eager_chunk(s, TRAIN_TIME_STEPS), reps=1, warm=0) / TRAIN_TIME_STEPS
+        ms["graph"][s] = time_ms(lambda: graph_tr.train_scale(s, TRAIN_TIME_STEPS), reps=1, warm=0) / TRAIN_TIME_STEPS
         h, w = sizes_hw[s]
         flops = 3 * TRAIN_BATCH * h * w * denoiser_flops_per_pixel(DIM)
-        say(f"[time train step s={s} {h}x{w} batch {TRAIN_BATCH} fp32, TF32 off] ms {step_ms[s]:.2f} peak_GB "
-            f"{peak_gb[s]:.2f} TFLOP {flops / 1e12:.3f} (3x the forward's) TFLOP/s "
-            f"{flops / step_ms[s] / 1e9:.2f}")
-    mean_ms = sum(step_ms.values()) / len(step_ms)
-    say(f"[time train step] mean over the uniform scale draw {mean_ms:.2f} ms")
-    groups = profile_train_step(lambda: trainer.train_step(s=pyramid.n_scales - 1))
-    tmp.cleanup()
-    return {"wall_s": wall, "losses": losses, "resume_wall_s": r_wall, "step_ms": step_ms, "mean_step_ms": mean_ms,
-            "peak_GB": peak_gb, "vs_float64": errors, "tf32_control_vs_float64": control,
-            "finest_step_profile_ms": groups}
+        say(f"[time train step s={s} {h}x{w} batch {TRAIN_BATCH} fp32, TF32 off] ms per step {ms['per_step'][s]:.2f} "
+            f"eager chunk {ms['eager_chunk'][s]:.2f} graph replay {ms['graph'][s]:.2f} "
+            f"(graph / per step {ms['graph'][s] / ms['per_step'][s]:.4f}) peak_GB {peak_gb[s]:.2f} TFLOP "
+            f"{flops / 1e12:.3f} (3x the forward's) TFLOP/s per step {flops / ms['per_step'][s] / 1e9:.2f} graph "
+            f"{flops / ms['graph'][s] / 1e9:.2f}")
+    mean = {k: sum(v.values()) / n for k, v in ms.items()}
+    say(f"[time train step] mean over the uniform scale draw: per step {mean['per_step']:.2f} ms, eager chunk "
+        f"{mean['eager_chunk']:.2f} ms, graph replay {mean['graph']:.2f} ms")
+    profiles = {}
+    for s in (0, n - 1):
+        for name, run in (("per_step", lambda: [graph_tr.train_step(s=s) for _ in range(TRAIN_PROFILE_STEPS)]),
+                          ("graph", lambda: graph_tr.train_scale(s, TRAIN_PROFILE_STEPS))):
+            prof = profile_walk(run)
+            if prof is None:
+                say(f"[profile train {name} s={s}] torch.profiler recorded no device activity: not measured")
+                continue
+            by_name, busy, window = prof
+            kernels = sum(c for _, c in by_name.values()) / TRAIN_PROFILE_STEPS
+            profiles[f"{name}_s{s}"] = {"busy_ms_per_step": busy / 1e3 / TRAIN_PROFILE_STEPS,
+                                        "idle_share": 1 - busy / window, "kernels_per_step": kernels}
+            say(f"[profile train {name} s={s} {sizes_hw[s]}] {TRAIN_PROFILE_STEPS} steps: device busy_ms a step "
+                f"{busy / 1e3 / TRAIN_PROFILE_STEPS:.2f} window_ms {window / 1e3:.2f} idle_share "
+                f"{1 - busy / window:.4f} kernels a step {kernels:.1f}")
+    groups = profile_train_step(lambda: graph_tr.train_step(s=n - 1))
+    return {"step_ms": ms["per_step"], "mean_step_ms": mean["per_step"], "eager_chunk_step_ms": ms["eager_chunk"],
+            "graph_step_ms": ms["graph"], "mean_step_ms_by_executor": mean, "peak_GB": peak_gb,
+            "step_profiles": profiles, "finest_step_profile_ms": groups}
+
+
+def graph_resume(new_trainer, n, release) -> dict:
+    """Phase 8 (e): a graph trainer's chunk, a checkpoint, another chunk; a
+    new graph trainer loads the checkpoint and runs that chunk: the same
+    scales, the losses within GRAPH_LOSS_TOL; the checkpoint through a CPU
+    trainer (loaded, saved again) and back onto the card keeps the
+    parameters, Adam's state and the scale order."""
+    import numpy as np
+
+    from sinddm_tpu_torch.models.denoiser import SinDDMNet
+    from sinddm_tpu_torch.schedules import make_schedules
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer
+
+    first = new_trainer("resume")
+    first.train_chunk_grouped(2 * n)
+    path = first.save(1)
+    saved = {k: v.clone() for k, v in first.model.state_dict().items()}
+    losses = first.train_chunk_grouped(2 * n)
+    scales, pyramid, cfg, diff_cfg, folder = (first.running_scale, first.pyramid, first.cfg, first.diff_cfg,
+                                              first.results_folder)
+    del first
+    release()
+    resumed = new_trainer("resume_b", seed=3)
+    resumed.load_path(path)
+    again = resumed.train_chunk_grouped(2 * n)
+    rel = float(np.max(np.abs(again - losses) / np.abs(losses)))
+    same = resumed.running_scale == scales
+    del resumed
+    release()
+    cpu_sched = make_schedules(timesteps=100, scale_losses=pyramid.rescale_losses, n_scales=n, device="cpu")
+    cpu = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cpu"), cpu_sched, pyramid, cfg, diff_cfg, folder / "cpu",
+                            seed=4, device="cpu")
+    cpu.load_path(path)
+    back_path = cpu.save(1)
+    back = new_trainer("resume_c", seed=5)
+    back.load_path(back_path)
+    params_equal = all(torch.equal(back.model.state_dict()[k], v) for k, v in saved.items())
+    adam_equal = all(torch.equal(back.opt.state[p]["exp_avg_sq"].cpu(), cpu.opt.state[q]["exp_avg_sq"])
+                     for p, q in zip(back.model.parameters(), cpu.model.parameters()))
+    back.train_chunk_grouped(2 * n)
+    back_same = back.running_scale == scales
+    ok = rel <= GRAPH_LOSS_TOL and same and params_equal and adam_equal and back_same
+    say(f"[check train resume] a graph run's chunk after its checkpoint, resumed by a new graph trainer: scales "
+        f"equal {same}, loss rel {rel:.3e} (<= {GRAPH_LOSS_TOL:g}); through a CPU trainer and back: parameters "
+        f"equal {params_equal}, Adam's state equal {adam_equal}, scales equal {back_same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("a graph run's checkpoint did not resume the same chunks")
+    return {"loss_rel": rel, "scales_equal": same, "cpu_round_trip": params_equal and adam_equal and back_same}
+
+
+def precompile_check(data, work) -> dict:
+    """Phase 8 (f): ``--mode sample --precompile`` at batch 2 with the build
+    directory pointed at an empty folder (a cold build of every kernel, all
+    nvcc jobs at once), then again (warm)."""
+    from sinddm_tpu_torch.ops import _build
+
+    argv = ["--mode", "sample", "--precompile", "--dataset_folder", str(data), "--image_name", "synthetic.png",
+            "--results_folder", str(work / "precompile"), "--dim", str(DIM), "--sample_batch_size", "2"]
+    saved_dir = _build.BUILD_DIR
+    _build.BUILD_DIR = work / "kernels_cold"
+    out = {}
+    try:
+        for what in ("cold", "warm"):
+            _, wall, _, text = run_cli(f"precompile {what}", argv)
+            found = re.findall(r"^precompile: built the CUDA kernels in (\S+) s", text, re.M)
+            if not found:
+                fail(f"--precompile ({what}) printed no build time")
+            out[what] = {"build_s": float(found[0]), "wall_s": wall}
+        built = sorted(p.name.split("-")[0] for p in _build.BUILD_DIR.glob("*.so"))
+    finally:
+        _build.BUILD_DIR = saved_dir
+    say(f"[precompile] --mode sample --precompile batch 2: cold build_s {out['cold']['build_s']:.2f} (wall_s "
+        f"{out['cold']['wall_s']:.2f}), warm build_s {out['warm']['build_s']:.2f} (wall_s {out['warm']['wall_s']:.2f}); "
+        f"libraries built {built}")
+    if built != sorted(_build.KERNELS) or out["warm"]["build_s"] >= out["cold"]["build_s"]:
+        fail(f"--precompile built {built}, cold {out['cold']} warm {out['warm']}")
+    return out
 
 
 def profile_train_step(run):
@@ -1311,7 +1829,8 @@ def mesh_walk(model, sched, sizes_hw, walk, sharding=None):
 def mesh_train(tmp_dir, mesh=None) -> dict:
     """Three train steps at dim 160, batch TRAIN_BATCH on phase 8's seeded
     image (s = 0, the finest, the finest), with the parameters after the
-    second and the third; and, under a mesh, one step at batch
+    second and the third, then a grouped chunk of a step at each scale;
+    and, under a mesh, one step at batch
     TRAIN_CHECK_BATCH against float64 at the coarsest and the finest scale."""
     from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
     from sinddm_tpu_torch.models.denoiser import SinDDMNet
@@ -1334,7 +1853,10 @@ def mesh_train(tmp_dir, mesh=None) -> dict:
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         if i >= 1:
             out[f"p{i + 1}"] = snap()
-    out["lr"] = tr.opt.param_groups[0]["lr"]
+    out["lr"] = float(tr.opt.param_groups[0]["lr"])
+    # then a grouped chunk, a step at each scale (uncaptured under a mesh)
+    out["chunk_losses"] = tr.train_chunk_grouped(n).tolist()
+    out["chunk_scales"] = tr.running_scale[3:]
     if mesh is not None:
         out["vs_float64"] = {}
         for s in (0, n - 1):
@@ -1500,9 +2022,9 @@ def mesh_phase() -> dict:
     from sinddm_tpu_torch.parallel.mesh import gather_block
 
     t_phase = time.perf_counter()
+    out = {"held_at_start": release_cache("phase 11")}
     model, sched, sizes_hw, pyramid, mode_cfg, walk = mesh_objects()
     clip_model = random_clip_params(VIT_B_32, seed=0, device="cuda")
-    out = {}
     work = ROOT / "build"
     work.mkdir(exist_ok=True)
     tmp = tempfile.TemporaryDirectory(dir=work)
@@ -1520,7 +2042,7 @@ def mesh_phase() -> dict:
         "control, other draws": guided_walk(model, sched, pyramid, clip_model, MESH_GUIDED_BATCH,
                                             MESH_WALK_SEED + 1, mode_cfg, bucketed=False),
     }
-    torch.cuda.empty_cache()
+    out["held_beside_the_worlds"] = release_cache("the worlds")
 
     worlds = {}
     for name, data, spatial in MESH_WORLDS:
@@ -1562,6 +2084,9 @@ def mesh_phase() -> dict:
     for name, ranks in worlds.items():
         tr = ranks[0]["train"]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"], single_train["losses"]))
+        # the chunk's steps 4-8 carry the first three's last-bit differences: the free-running bound
+        chunk_rel = max(abs(a - b) / abs(b) for a, b in zip(tr["chunk_losses"], single_train["chunk_losses"]))
+        chunk_ok = tr["chunk_scales"] == single_train["chunk_scales"] and chunk_rel <= GRAPH_LOSS_TOL
         change = torch.cat([((tr["p2"][k] - single_train["p2"][k]).abs() / lr).flatten() for k in tr["p2"]])
         share = share_over(change, 1e-2)
         bit_equal = all(torch.equal(r["train"]["p3"][k], tr["p3"][k]) for r in ranks[1:] for k in tr["p3"])
@@ -1569,8 +2094,10 @@ def mesh_phase() -> dict:
                for s in tr["vs_float64"]}
         f64_ok = all(e["loss_rel"] <= TRAIN_LOSS_TOL and e["grad_rel"] <= TRAIN_GRAD_TOL
                      and e["change_share"] <= TRAIN_UPDATE_SHARE for e in f64.values())
-        ok = loss_rel <= TRAIN_LOSS_TOL and share <= TRAIN_UPDATE_SHARE and bit_equal and f64_ok
-        say(f"[check mesh train {name} dim {DIM} batch {TRAIN_BATCH}, s = 0, 4, 4] loss rel to the single process "
+        ok = loss_rel <= TRAIN_LOSS_TOL and share <= TRAIN_UPDATE_SHARE and bit_equal and f64_ok and chunk_ok
+        say(f"[check mesh train {name} dim {DIM} batch {TRAIN_BATCH}, s = 0, 4, 4, then a grouped chunk of "
+            f"{len(tr['chunk_scales'])} steps (scales equal {tr['chunk_scales'] == single_train['chunk_scales']}, "
+            f"loss rel {chunk_rel:.3e} <= {GRAPH_LOSS_TOL:g})] loss rel to the single process "
             f"{loss_rel:.3e} (<= {TRAIN_LOSS_TOL:g}); parameters after two steps: largest difference "
             f"{change.max().item():.3e} lr, share over 1e-2 lr {share:.3e} (<= {TRAIN_UPDATE_SHARE:g}); after three "
             f"steps bit-equal across ranks {bit_equal}; step ms by rank {[[round(v, 1) for v in r['train']['ms']] for r in ranks]} "
@@ -1580,7 +2107,8 @@ def mesh_phase() -> dict:
             + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"the {name} world's train steps are off the single process's or float64's, or its ranks disagree")
-        out["train"][name] = {"loss_rel": loss_rel, "change_max_lr": change.max().item(), "change_share": share,
+        out["train"][name] = {"loss_rel": loss_rel, "chunk_loss_rel": chunk_rel, "change_max_lr": change.max().item(),
+                              "change_share": share,
                               "vs_float64": f64, "ms": [r["train"]["ms"] for r in ranks]}
 
     # (c) guidance, data = 2
@@ -2344,5 +2872,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         mesh_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--train-worker"]:
+        train_worker(sys.argv[2:])
     else:
         main()

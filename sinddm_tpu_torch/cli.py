@@ -27,11 +27,16 @@ training. Writes the same files as the JAX CLI (``final_samples/``,
 ``interm_samples_*/``). A CLIP mode needs a ViT-B/32 checkpoint
 (``--clip_weights`` or one of the sniffed paths) and stops without one.
 
-Not taken: ``--steps_per_chunk`` and ``--fused_mode`` (they fuse training
-steps into one XLA call; the port runs a step a call); ``--precompile`` (it
-compiles the sampler's XLA executables ahead of the walk; PyTorch runs
-eagerly and compiles nothing, and the CUDA kernels are built once, at first
-use).
+``--steps_per_chunk`` and ``--fused_mode`` keep the JAX CLI's defaults and
+meanings: ``--mode train`` runs chunks of 100 steps, each visiting every
+scale in equal counts at its true shape (``grouped``), or on one padded
+canvas with the scale drawn on the card (``padded``); on the card a chunk's
+steps are CUDA-graph replays (``training/trainer.py``). ``--steps_per_chunk
+0`` trains step by step. ``--precompile`` builds every CUDA kernel before the
+mode runs, one ``nvcc`` a source, all at once, and prints the build's
+seconds: the port's counterpart of compiling the sampler's executables
+ahead of the walk (PyTorch compiles nothing else); without it a kernel is
+built at its first use. The port's parser takes every flag of the JAX CLI.
 
 A world of ranks, one process a card: every process runs the same command
 line with ``--coordinator host:port --num_processes N --process_id i`` (or
@@ -107,6 +112,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--omega", default=0, type=float)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--steps_per_chunk", default=100, type=int,
+                   help="train steps a chunk, one loss fetch a chunk; on a CUDA card each step a "
+                        "CUDA-graph replay (0 = per-step)")
+    p.add_argument("--fused_mode", default="grouped", choices=["grouped", "padded"],
+                   help="chunk strategy (see TrainConfig): per-scale sub-chunks at true shapes, or "
+                        "one padded canvas with the scale drawn on the device")
+    p.add_argument("--precompile", action="store_true",
+                   help="build every CUDA kernel (one nvcc a source, all at once) before the mode "
+                        "runs, and print the seconds; without it a kernel is built at its first use")
     p.add_argument("--load_checkpoint", default=None,
                    help=".npz of the denoiser's parameters in the JAX package's "
                         "layout, '/'-joined keys (e.g. l3/net_conv1/kernel)")
@@ -227,6 +241,8 @@ def run(args) -> list:
         if device.type != "cuda":
             raise SystemExit("--device_num selects a CUDA card; it cannot be combined with --device cpu")
         device = torch.device("cuda", args.device_num)
+    if args.precompile:
+        _precompile(device, in_world)
     mesh_cfg = MeshConfig(data=args.mesh_data, spatial=args.mesh_spatial)
     try:
         mesh = mesh_cfg.build()
@@ -254,6 +270,27 @@ def run(args) -> list:
         outs = _run_mode(args, device, sharding)
     print(f"profiler trace written to {args.profile}")
     return outs
+
+
+def _precompile(device, in_world: bool) -> None:
+    """--precompile: build every CUDA kernel before the mode runs (all
+    ``nvcc`` jobs at once; in a world, local rank 0 builds while the others
+    wait) and print the seconds it took. The CPU runs the plain versions and
+    builds nothing."""
+    import time
+
+    from sinddm_tpu_torch.ops import _build
+    from sinddm_tpu_torch.parallel import distributed
+
+    if device.type != "cuda":
+        print("precompile: nothing to build on the CPU (the kernels' plain versions run there)")
+        return
+    t0 = time.perf_counter()
+    if in_world:
+        distributed.build_kernels_once()
+    else:
+        _build.build()
+    print(f"precompile: built the CUDA kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def _run_mode(args, device, sharding=None) -> list:
@@ -447,8 +484,8 @@ def _roi(args, model, sched, pyramid, generator, results_folder, device, shardin
 
 
 def _train(args, sched, pyramid, results_folder, device, sharding=None):
-    """--mode train: build the trainer, restore what the flags name, train,
-    and return the EMA denoiser. Every milestone writes 16 scale-0 samples
+    """--mode train: build the trainer, restore what the flags name, train
+    (in chunks unless ``--steps_per_chunk 0``), and return the EMA denoiser. Every milestone writes 16 scale-0 samples
     of the EMA weights as ``sample-{milestone}.png`` (the primary rank
     alone, in a world, which also alone logs)."""
     import torch
@@ -465,6 +502,7 @@ def _train(args, sched, pyramid, results_folder, device, sharding=None):
         train_batch_size=args.train_batch_size, train_lr=args.train_lr, train_num_steps=args.train_num_steps,
         grad_accumulate=args.grad_accumulate, save_and_sample_every=args.save_and_sample_every,
         avg_window=args.avg_window, sched_milestones=tuple(v * 1000 for v in args.sched_k_milestones),
+        steps_per_chunk=args.steps_per_chunk, fused_mode=args.fused_mode,
     )
     diff_cfg = DiffusionConfig(timesteps=args.timesteps, scale_factor=args.scale_factor,
                                loss_factor=args.loss_factor, sample_limited_t=args.sample_limited_t,
@@ -494,7 +532,8 @@ def _train(args, sched, pyramid, results_folder, device, sharding=None):
                                     device=device)
         save_image((x + 1) * 0.5, results_folder / f"sample-{milestone}.png")
 
-    trainer.train(on_milestone=on_milestone, log_fn=print if primary else (lambda _: None))
+    trainer.train(fused=args.steps_per_chunk > 0, on_milestone=on_milestone,
+                  log_fn=print if primary else (lambda _: None))
     return trainer.ema_model
 
 

@@ -1,9 +1,10 @@
 """Configuration of the port (part of ``sinddm_tpu/config.py``).
 
 The dataclasses that sampling and training read, with the JAX package's
-defaults, and ``MeshConfig``. ``TrainConfig`` leaves out ``steps_per_chunk``
-and ``fused_mode``: they fuse training steps into one XLA call, and the port
-runs one step a call.
+defaults, and ``MeshConfig``. ``TrainConfig``'s ``steps_per_chunk`` and
+``fused_mode`` keep the JAX package's values and meanings: on the card a
+chunk's steps are replays of one CUDA graph of a whole step
+(``training/trainer.py``), where the JAX package runs them as one ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,20 @@ class TrainConfig:
     # milestones in steps (the CLI takes k-steps and multiplies by 1000)
     sched_milestones: Tuple[int, ...] = (20000, 40000, 70000, 80000, 90000, 110000)
     lr_gamma: float = 0.5
+    # train steps a chunk: one loss fetch a chunk, and on the card each
+    # step a replay of a captured CUDA graph. 0 disables the chunk path.
+    steps_per_chunk: int = 100
+    # 'grouped': equal per-scale sub-chunks at true shapes (deterministic
+    #   uniform scale counts per chunk instead of the reference's i.i.d.
+    #   multinomial draw, identical marginals: PARITY.md deviation 2);
+    # 'padded': on-device multinomial scale choice over one padded canvas
+    #   (exact reference scale distribution, ~2.5x more conv FLOPs);
+    # fused_mode is ignored when steps_per_chunk == 0.
+    fused_mode: str = "grouped"
+
+    def __post_init__(self):
+        if self.fused_mode not in ("grouped", "padded"):
+            raise ValueError(f"fused_mode must be 'grouped' or 'padded', got {self.fused_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,9 @@ carry, aux)`` edits the predicted clean image of each step (CLIP guidance);
 its carry is threaded through the loop and its aux collected per step. The
 hook draws its own random numbers (the JAX package hands it a key).
 :func:`training_loss` draws its timesteps and noise from a generator, or
-takes them injected, and :func:`p_losses` computes the loss they give.
+takes them injected, and :func:`p_losses` computes the loss they give;
+:func:`canvas_training_loss` is the padded training chunk's loss, at a
+scale held on the device.
 """
 
 from __future__ import annotations
@@ -278,12 +280,13 @@ def p_losses(
     t: torch.Tensor,
     noise: torch.Tensor,
     *,
-    s: int,
+    s,
     x_orig: Optional[torch.Tensor] = None,
     loss_type: str = "l1",
     valid_mask: Optional[torch.Tensor] = None,
-    denominator: Optional[float] = None,
+    denominator=None,
     first_t: Optional[torch.Tensor] = None,
+    gammas_row: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Training loss of one batch at timesteps ``t`` [B] with ``noise``.
 
@@ -296,17 +299,27 @@ def p_losses(
     ``x_orig`` when the batch's first timestep is 0 (the reference tests
     t[0] only).
 
+    ``s`` is a Python int, or a 0-d device tensor (the padded chunk's scale,
+    drawn on the device) with its ``gammas_row`` given: the row, all zeros
+    at s = 0, is then read on the device with no host sync (``l1`` and
+    ``l2`` only).
+
     A rank of a split batch computes its part of the batch's loss: it passes
     the whole batch's element count as ``denominator`` (the masked sum is
-    divided by it, not by the count it sums), and the whole batch's first
-    timestep as ``first_t``."""
-    if s > 0:
-        g = extract(sched.gammas_row(s), t)
+    divided by it, not by the count it sums; a device tensor where the
+    count is one), and the whole batch's first timestep as ``first_t``."""
+    if gammas_row is None and s > 0:
+        gammas_row = sched.gammas_row(s)
+    if gammas_row is not None:
+        g = extract(gammas_row, t)
         x_mix = g * x_start + (1.0 - g) * x_orig
     else:
         x_mix = x_start
     x_noisy = q_sample(sched, x_mix, t, noise)
-    s_vec = torch.full((t.shape[0],), float(s), dtype=torch.float32, device=t.device)
+    if isinstance(s, torch.Tensor):
+        s_vec = s.to(torch.float32).expand(t.shape[0])
+    else:
+        s_vec = torch.full((t.shape[0],), float(s), dtype=torch.float32, device=t.device)
     x_recon = model_fn(x_noisy, t, s_vec)
 
     def mean(err):
@@ -352,6 +365,71 @@ def training_draws(
         noise = torch.randn((batch_size,) + tuple(x_orig.shape[1:]), generator=generator, device=device,
                             dtype=x_orig.dtype)
     return t, noise
+
+
+def canvas_batch(
+    canvas: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], gammas_all: torch.Tensor, s: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scale ``s`` (a 0-d device tensor) of the padded stack: (x_orig,
+    x_blur, mask) [1, Hm, Wm, C or 1] from ``canvas`` (every scale
+    top-left on one canvas, mask 1 on its valid pixels) and its row of
+    ``gammas_all`` (``sched.gammas`` below a zero row for s = 0), gathered
+    on the device."""
+    idx = s.reshape(1)
+    x_orig, x_blur, mask = (a.index_select(0, idx) for a in canvas)
+    return x_orig, x_blur, mask, gammas_all.index_select(0, idx)[0]
+
+
+def canvas_draws(
+    trained: torch.Tensor,
+    s: torch.Tensor,
+    shape: Tuple[int, ...],
+    *,
+    batch_size: int,
+    generator: Optional[torch.Generator] = None,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The padded chunk's draws at scale ``s`` (a 0-d device tensor):
+    ``t = floor(u * trained[s])``, u ~ U[0, 1) [B], then the noise of the
+    canvas's ``shape`` (H, W, C), from ``generator`` on ``trained``'s
+    device; an injected one is kept."""
+    device = trained.device
+    if t is None:
+        u = torch.rand((batch_size,), generator=generator, device=device)
+        t = (u * trained.index_select(0, s.reshape(1)).to(torch.float32)).long()
+    if noise is None:
+        noise = torch.randn((batch_size,) + tuple(shape), generator=generator, device=device)
+    return t, noise
+
+
+def canvas_training_loss(
+    model_fn: Callable[..., torch.Tensor],
+    sched: Schedules,
+    canvas: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    gammas_all: torch.Tensor,
+    trained: torch.Tensor,
+    s: torch.Tensor,
+    *,
+    batch_size: int,
+    loss_type: str = "l1",
+    generator: Optional[torch.Generator] = None,
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The padded chunk's loss of one batch at scale ``s``, a 0-d device
+    tensor (the JAX trainer's ``one_loss`` in ``_build_chunk_fn``): the draws
+    of :func:`canvas_draws`, the mix with the scale's gamma row (zero at
+    s = 0), the denoiser in its valid-mask mode (``model_fn(x, t, s,
+    mask)``), and the mean of the error over the valid pixels,
+    ``sum(err * w) / sum(w)``. ``l1`` and ``l2`` only."""
+    if loss_type not in ("l1", "l2"):
+        raise ValueError(f"the padded chunk takes loss_type l1 or l2, got {loss_type!r}")
+    x_orig, x_blur, mask, gammas_row = canvas_batch(canvas, gammas_all, s)
+    t, noise = canvas_draws(trained, s, x_orig.shape[1:], batch_size=batch_size, generator=generator, t=t,
+                            noise=noise)
+    return p_losses(lambda x, tt, sc: model_fn(x, tt, sc, mask), sched, x_blur, t, noise, s=s, x_orig=x_orig,
+                    loss_type=loss_type, valid_mask=mask, gammas_row=gammas_row)
 
 
 def training_loss(

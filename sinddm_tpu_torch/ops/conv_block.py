@@ -61,14 +61,22 @@ def _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd, mask=None) -> tor
 
 
 def conv_block_train(
-    x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres
+    x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, mask=None
 ) -> torch.Tensor:
     """The block with :func:`conv_block`'s signature under autograd, every
     stage in x's type (float32 to train; float64 as the oracle) with no
     rounding in between. On a CUDA tensor these are cuDNN's convolutions,
     in TF32 where the caller lets cuDNN take it
-    (``torch.backends.cudnn.allow_tf32``)."""
-    return _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd=lambda t: t)
+    (``torch.backends.cudnn.allow_tf32``).
+
+    In the valid-mask mode (the padded training chunk), the mask multiplies
+    x on entry and h1 and g between the stages, inside the autograd graph.
+    So on the valid region the output, and everywhere the parameters'
+    gradients, equal those of the block run on the valid crop at its true
+    shape, for a gradient of the output that is 0 outside the region: the
+    masks give each convolution the zeros that 'SAME' padding gives the
+    crop."""
+    return _block(x, cond, wdw, bdw, w1, b1, w2, b2, wres, bres, rnd=lambda t: t, mask=mask)
 
 
 def conv_block_reference(

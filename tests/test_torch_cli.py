@@ -5,7 +5,8 @@ package's ``save_interm_frames`` writes them); shared flags keep the JAX
 CLI's defaults. ``--mode harmonization|style_transfer|roi`` write the JAX
 CLI's files (``i2i_final_samples/``, ``unbatched_i2i_*/``,
 ``roi_patches.png``, ``final_samples/roi_out.png``); ``--profile`` writes a
-trace; the flags the port does not take are refused."""
+trace; every flag of the JAX CLI is taken and parses as the JAX CLI parses
+it."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,8 @@ from sinddm_tpu_torch import cli
 from sinddm_tpu_torch.models.convert import flatten_tree, random_flax_params
 from torch_clip_draws import one_torch_thread  # noqa: F401  (fixture)
 
-# the JAX CLI's flags that the port does not take (the cli module's docstring says why)
-NOT_TAKEN = {"steps_per_chunk", "fused_mode", "precompile"}
+# the JAX CLI's flags that the port does not take: none
+NOT_TAKEN = set()
 
 
 @pytest.fixture(scope="module")
@@ -102,15 +103,14 @@ def test_configs_keep_the_jax_defaults():
 
 def test_train_flags_keep_the_jax_defaults():
     """The training flags are the JAX CLI's, with its defaults, the mesh
-    flags among them; the flags that fuse steps into one XLA call are not
-    taken."""
+    flags and the chunk flags among them."""
     ours = vars(cli.build_parser().parse_args(["--mode", "train"]))
     theirs = vars(jax_build_parser().parse_args(["--mode", "train"]))
     train = {"train_batch_size", "grad_accumulate", "train_num_steps", "save_and_sample_every", "avg_window",
              "train_lr", "sched_k_milestones", "load_milestone", "loss_factor", "load_reference_ckpt",
-             "mesh_data", "mesh_spatial", "coordinator", "num_processes", "process_id"}
+             "mesh_data", "mesh_spatial", "coordinator", "num_processes", "process_id", "steps_per_chunk",
+             "fused_mode"}
     assert train <= set(ours) and {k: ours[k] for k in train} == {k: theirs[k] for k in train}
-    assert not {"steps_per_chunk", "fused_mode"} & set(ours)
 
 
 def test_train_mode_writes_checkpoints_and_resumes(dataset, tmp_path, capsys):
@@ -142,6 +142,31 @@ def test_train_mode_writes_checkpoints_and_resumes(dataset, tmp_path, capsys):
     assert data["step"] == 6 and len(data["running_loss"]) == 3 and data["sched"]["last_epoch"] == 6
     with pytest.raises(SystemExit, match="float32"):
         cli.run(cli.build_parser().parse_args(argv + ["--compute_dtype", "bfloat16"]))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("extra,chunks", [(["--fused_mode", "padded", "--precompile"], {"padded": [3]}),
+                                          (["--steps_per_chunk", "0"], {})])
+def test_train_mode_takes_the_chunk_flags(dataset, tmp_path, capsys, monkeypatch, extra, chunks):
+    """--fused_mode padded trains in padded chunks (3 steps, cut at the
+    milestone), --steps_per_chunk 0 step by step; --precompile has nothing
+    to build on the CPU and says so."""
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer
+
+    seen = {}
+    for name, method in (("grouped", "train_chunk_grouped"), ("padded", "train_chunk")):
+        real = getattr(MultiscaleTrainer, method)
+        monkeypatch.setattr(MultiscaleTrainer, method,
+                            lambda self, n, real=real, name=name: (seen.setdefault(name, []).append(n),
+                                                                   real(self, n))[1])
+    argv = ["--mode", "train", "--device", "cpu", "--dataset_folder", str(dataset), "--image_name", "tiny.png",
+            "--results_folder", str(tmp_path), "--scope", "tiny", "--dim", "8", "--timesteps", "10",
+            "--train_batch_size", "1", "--train_num_steps", "3", "--save_and_sample_every", "3",
+            "--sample_batch_size", "1"]
+    cli.run(cli.build_parser().parse_args(argv + extra))
+    assert seen == chunks
+    assert len(torch.load(tmp_path / "tiny" / "model-1.pt", weights_only=True)["running_scale"]) == 3
+    assert ("precompile: nothing to build on the CPU" in capsys.readouterr().out) == ("--precompile" in extra)
 
 
 def test_modes_take_a_reference_checkpoint(dataset, tmp_path, capsys):
@@ -181,11 +206,14 @@ def test_every_mode_keeps_the_jax_flags_and_defaults(mode):
     assert choices(cli.build_parser()) == choices(jax_build_parser())
 
 
-@pytest.mark.parametrize("argv", [["--precompile"], ["--fused_mode", "grouped"], ["--steps_per_chunk", "4"]])
-def test_flags_not_taken_are_refused(argv, capsys):
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--mode", "sample"] + argv)
-    assert "unrecognized arguments" in capsys.readouterr().err
+@pytest.mark.parametrize("argv", [["--precompile"], ["--fused_mode", "padded"], ["--steps_per_chunk", "4"]])
+def test_flags_not_taken_are_refused(argv):
+    """The three flags the port once refused parse as the JAX CLI parses
+    them (the name is kept from then)."""
+    dest = argv[0][2:]
+    ours = vars(cli.build_parser().parse_args(["--mode", "train"] + argv))
+    theirs = vars(jax_build_parser().parse_args(["--mode", "train"] + argv))
+    assert ours[dest] == theirs[dest] != vars(cli.build_parser().parse_args(["--mode", "train"]))[dest]
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,10 @@ step's loss within 1e-5 relative, its gradients within 1e-4 of max
 |gradient| and every parameter's change within 1e-2 lr for all but 0.1% of
 the elements (Adam's first step is about lr times the gradient's sign,
 which a gradient near zero may flip). The control: the same step without
-the trainer's scope, in TF32, breaks one of those bounds. An i2i walk and a
+the trainer's scope, in TF32, breaks one of those bounds. Training chunks
+replaying CUDA graphs against the eager chunks from the same seed: the
+losses within 1e-4 relative, the parameters within 0.25 lr (the two
+drift through cuDNN's non-repeatable backward). An i2i walk and a
 ROI walk at dim 16 through the kernels against the same walks through the
 plain conv block, under the same seeded noise: 2e-3 absolute, the bound of
 a batch-2 walk in ``chip_smoke.py``.
@@ -489,7 +492,7 @@ def test_train_block_matches_float64(gen, monkeypatch, b, h, w, c, co):
             assert (a.grad.double() - a64.grad).abs().max().item() <= 1e-4 * a64.grad.abs().max().item()
 
 
-def _dim16_trainer(tmp_path):
+def _dim16_trainer(tmp_path, **cfg):
     import numpy as np
 
     from sinddm_tpu_torch.config import DiffusionConfig, TrainConfig
@@ -504,7 +507,7 @@ def _dim16_trainer(tmp_path):
     pyr = Pyramid(sizes_hw=sizes, sizes_wh=tuple((w_, h_) for h_, w_ in sizes), images=images,
                   recon_images=images, rescale_losses=(0.3, 0.2), scale_factor=1.41, n_scales=3)
     sched = make_schedules(timesteps=100, scale_losses=(0.3, 0.2), n_scales=3, device="cuda")
-    return MultiscaleTrainer(SinDDMNet(dim=16, device="cuda"), sched, pyr, TrainConfig(train_batch_size=4),
+    return MultiscaleTrainer(SinDDMNet(dim=16, device="cuda"), sched, pyr, TrainConfig(train_batch_size=4, **cfg),
                              DiffusionConfig(), tmp_path, seed=1, device="cuda")
 
 
@@ -542,6 +545,68 @@ def test_train_step_bounds_catch_tf32(gen, tmp_path, monkeypatch, s):
     monkeypatch.setattr(trainer_mod, "fp32_convs", contextlib.nullcontext)
     e = _step_errors(gen, tmp_path, s)
     assert not _within_step_bounds(e), e
+
+
+def _graph_vs_eager(tmp_path, fused_mode, fault=None):
+    """Two chunks of 12 steps at dim 16, with an lr milestone at step 16
+    (inside the second chunk, where every step is a replay), on a trainer
+    replaying CUDA graphs (a shape's first two steps eager, then the
+    capture; ``fault`` planted in its captures as ``chip_smoke.py`` plants
+    it) and on an eager one from the same seed. Returns the largest loss
+    error (relative), the largest parameter difference (in the initial
+    lr), whether the scales were the same, and the shapes captured."""
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    graph, eager = (_dim16_trainer(tmp_path / name, sched_milestones=(16,)) for name in ("graph", "eager"))
+    eager.use_graphs = False
+    if fault is not None:
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        from chip_smoke import plant_graph_fault
+
+        plant_graph_fault(graph, fault)
+    rel = 0.0
+    for _ in range(2):
+        a, b = ((tr.train_chunk_grouped(12) if fused_mode == "grouped" else tr.train_chunk(12))
+                for tr in (graph, eager))
+        rel = max(rel, float(np.max(np.abs(a - b) / np.abs(b))))
+    lr_now = float(eager.opt.param_groups[0]["lr"])
+    assert lr_now == pytest.approx(eager.cfg.train_lr * eager.cfg.lr_gamma)  # the milestone was crossed
+    with torch.no_grad():
+        off = torch.cat([((p - q).abs() / eager.cfg.train_lr).flatten()
+                         for p, q in zip(graph.model.parameters(), eager.model.parameters())])
+    return rel, off.max().item(), graph.running_scale == eager.running_scale, set(graph._graphs)
+
+
+@pytest.mark.parametrize("fused_mode", ["grouped", "padded"])
+def test_graph_chunks_match_the_eager_chunks(gen, tmp_path, fused_mode):
+    """``_graph_vs_eager``: the same scales, each loss within 1e-4 relative
+    and every parameter within 0.25 lr. The two drift apart: cuDNN's
+    backward is not bitwise repeatable, and over 24 steps Adam carried that
+    to 1.4e-5 of a loss and 0.072 lr of a parameter at this size (H100
+    80GB HBM3, 700 W), where a wrong step (stale draws or lr, a stale Adam
+    count, unzeroed gradients) moves a loss by far more and a parameter by
+    about lr (the control below). A graph is captured for each scale
+    (grouped) or the canvas (padded)."""
+    rel, off, same, captured = _graph_vs_eager(tmp_path, fused_mode)
+    assert rel <= 1e-4 and off <= 0.25 and same, (rel, off, same)
+    assert captured == ({("scale", s) for s in range(3)} if fused_mode == "grouped" else {("canvas",)})
+
+
+@pytest.mark.parametrize("fault", ["unzeroed", "baked_lr", "unregistered"])
+@pytest.mark.parametrize("fused_mode", ["grouped", "padded"])
+def test_graph_chunk_bounds_catch_planted_faults(gen, tmp_path, fused_mode, fault):
+    """The control of the test above: a graph trainer whose captures do not
+    zero the gradients, bake in the lr (the milestone is lost), or leave
+    the device generator unregistered either fails to capture or breaks
+    one of its bounds."""
+    try:
+        rel, off, same, _ = _graph_vs_eager(tmp_path, fused_mode, fault)
+    except RuntimeError:  # the capture refused the step
+        return
+    assert rel > 1e-4 or off > 0.25 or not same, (rel, off, same)
 
 
 def _dim16_walk(gen):

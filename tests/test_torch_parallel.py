@@ -9,7 +9,8 @@ checks), started together by one module fixture beside a CLI world:
 * 2 x 2 (data x spatial): the split denoiser on an uneven batch and height,
   with the halo one row short as a control; ``sample_scales``; three train
   steps at ``l1`` and ``l1_pred_img``, the first also held against the JAX
-  package's step sharded over a 2 x 2 mesh of its CPU devices;
+  package's step sharded over a 2 x 2 mesh of its CPU devices; a grouped and
+  a padded training chunk;
 * data = 2: ``sample_scales``; one CLIP loss and gradient; the per-scale and
   the bucketed guided walk;
 * spatial = 2: ``sample_scales``;
@@ -80,7 +81,7 @@ WORKER = Path(__file__).with_name("torch_dist_worker.py")
 ROOT = WORKER.parents[1]
 # name: (data, spatial, checks)
 WORLDS = {
-    "2x2": (2, 2, "split,sample,train"),
+    "2x2": (2, 2, "split,sample,train,chunk"),
     "data2": (2, 1, "sample,clip,guided"),
     "spatial2": (1, 2, "sample"),
 }
@@ -89,6 +90,10 @@ CLI_ARGS = ["--mode", "sample", "--device", "cpu", "--image_name", "tiny.png", "
 # bounds: the denoiser call, a walk (module docstring), train steps as tests/test_parallel.py holds them
 SPLIT_ATOL, WALK_ATOL = 1e-5, 2e-4
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
+# a chunk's parameters: within 1e-2 lr (lr 1e-3) of the single process's, the
+# bound tests/test_torch_train.py holds steps to (Adam divides by sqrt(v), so
+# a gradient near zero carries the batch split's ~1e-6 to a share of lr)
+CHUNK_PARAM_ATOL = 1e-2 * 1e-3
 
 
 def _free_port() -> int:
@@ -376,6 +381,23 @@ def test_train_parameters_are_equal_across_ranks(runs):
             assert r[loss_type]["split"]["losses"] == first["losses"]
             for k, v in first["params"].items():
                 assert torch.equal(r[loss_type]["split"]["params"][k], v), k
+
+
+@pytest.mark.parametrize("mode", ["grouped", "padded"])
+def test_train_chunk_matches_the_single_process(runs, mode):
+    """A grouped chunk of 3 steps and a padded chunk of 2 (its canvas split
+    over rows and the batch, the valid mask on each rank's rows) at data 2 x
+    spatial 2: the scales visited, the losses and the parameters against the
+    single process's chunk; the parameters equal across ranks."""
+    ranks = [r["chunk"][mode] for r in runs["results"]["2x2"]]
+    split, single = ranks[0]["split"], ranks[0]["single"]
+    assert split["scales"] == single["scales"] and len(single["scales"]) == (3 if mode == "grouped" else 2)
+    np.testing.assert_allclose(split["losses"], single["losses"], rtol=TRAIN_LOSS_RTOL, atol=0)
+    for k, v in single["params"].items():
+        np.testing.assert_allclose(split["params"][k].numpy(), v.numpy(), atol=CHUNK_PARAM_ATOL, rtol=0, err_msg=k)
+    for r in ranks[1:]:
+        assert r["split"]["losses"] == split["losses"]
+        assert all(torch.equal(r["split"]["params"][k], v) for k, v in split["params"].items())
 
 
 @pytest.fixture(scope="module")

@@ -68,10 +68,10 @@ def _trainer(tmp_path, cfg, seed=0):
 
 
 def test_train_config_keeps_the_jax_defaults():
-    """Every field but the two that fuse steps into one XLA call."""
-    theirs = dataclasses.asdict(jax_config.TrainConfig())
-    assert theirs.pop("steps_per_chunk") == 100 and theirs.pop("fused_mode") == "grouped"
-    assert dataclasses.asdict(TrainConfig()) == theirs
+    """Every field, the chunk flags included; a fused_mode of neither kind is refused."""
+    assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(jax_config.TrainConfig())
+    with pytest.raises(ValueError, match="fused_mode"):
+        TrainConfig(fused_mode="scan")
 
 
 def _toy_models():
@@ -131,11 +131,12 @@ def test_training_loss_draws_and_takes_injected_draws():
 
 
 def test_lr_schedule_matches_make_lr_schedule_across_a_resume(tmp_path, one_torch_thread):  # noqa: F811
-    """The learning rate of update k, k = 0 .. 25, milestones (10, 20), is
-    make_lr_schedule(k), also when the run is saved at k = 15 and resumed
-    in a new trainer (the scheduler's and Adam's state restored)."""
-    cfg = TrainConfig(train_batch_size=1, train_lr=1e-3, sched_milestones=(10, 20), lr_gamma=0.5)
-    jax_lr = make_lr_schedule(jax_config.TrainConfig(train_lr=1e-3, sched_milestones=(10, 20), lr_gamma=0.5))
+    """The learning rate of update k, k = 0 .. 34, milestones (10, 20, 30),
+    is make_lr_schedule(k), also when the run is saved at k = 15 and resumed
+    in a new trainer (the scheduler's and Adam's state restored), and in a
+    grouped chunk of steps 26 .. 34, which crosses the milestone at 30."""
+    cfg = TrainConfig(train_batch_size=1, train_lr=1e-3, sched_milestones=(10, 20, 30), lr_gamma=0.5)
+    jax_lr = make_lr_schedule(jax_config.TrainConfig(train_lr=1e-3, sched_milestones=(10, 20, 30), lr_gamma=0.5))
     tr = _trainer(tmp_path, cfg)
     lrs = []
     for k in range(26):
@@ -146,8 +147,11 @@ def test_lr_schedule_matches_make_lr_schedule_across_a_resume(tmp_path, one_torc
             assert tr.step == 15
         lrs.append(tr.opt.param_groups[0]["lr"])
         tr.train_step(s=0)
-    np.testing.assert_allclose(lrs, [float(jax_lr(k)) for k in range(26)], rtol=1e-6, atol=0)
-    assert lrs[9] == 1e-3 and lrs[10] == 5e-4 and lrs[20] == 2.5e-4
+    step = tr._step
+    tr._step = lambda *args, **kw: (lrs.append(tr.opt.param_groups[0]["lr"]), step(*args, **kw))[1]
+    tr.train_chunk_grouped(9)
+    np.testing.assert_allclose(lrs, [float(jax_lr(k)) for k in range(35)], rtol=1e-6, atol=0)
+    assert lrs[9] == 1e-3 and lrs[10] == 5e-4 and lrs[20] == 2.5e-4 and lrs[29] == 2.5e-4 and lrs[30] == 1.25e-4
 
 
 def test_ema_matches_jax_over_25_steps():

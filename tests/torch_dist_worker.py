@@ -19,6 +19,8 @@ Checks:
   with injected draws (the whole batch's ``t[0] = 0`` and a non-zero first
   row on the other batch part); and that first step again from flax
   parameters, its loss and gradients kept for the JAX package's step;
+* ``chunk``: a grouped chunk of 3 steps and a padded chunk of 2, from one
+  trainer each;
 * ``clip``: one CLIP loss and gradient with a two-layer CLIP;
 * ``guided``: the per-scale and the bucketed guided walk with that CLIP,
   batch 2 (the CPU's CLIP path is slow: about a second an image a call).
@@ -152,6 +154,29 @@ def check_train(mesh, rank, tmp: Path) -> dict:
     return out
 
 
+def check_chunk(mesh, rank, tmp: Path) -> dict:
+    """A grouped chunk (a step at each scale, in the ``_rng``'s order) and
+    a padded chunk (scales drawn on the device), split over the mesh and, on
+    rank 0, as one process runs them."""
+    from sinddm_tpu_torch.training.trainer import MultiscaleTrainer
+
+    sched = make_schedules(timesteps=100, scale_losses=LOSSES, n_scales=3, device="cpu")
+
+    def run(m, folder, mode):
+        tr = MultiscaleTrainer(SinDDMNet(dim=DIM, device="cpu"), sched, pyramid(), TrainConfig(train_batch_size=4),
+                               DiffusionConfig(), folder, seed=0, device="cpu", mesh=m)
+        losses = tr.train_chunk_grouped(3) if mode == "grouped" else tr.train_chunk(2)
+        return {"losses": losses.tolist(), "scales": list(tr.running_scale),
+                "params": {k: v.detach().clone() for k, v in tr.model.state_dict().items()}}
+
+    out = {}
+    for mode in ("grouped", "padded"):
+        out[mode] = {"split": run(mesh, tmp / f"chunk{rank}", mode)}
+        if rank == 0:
+            out[mode]["single"] = run(None, tmp / "chunk_single", mode)
+    return out
+
+
 def _guidance_setup():
     from sinddm_tpu_torch.guidance.clip_extractor import ClipExtractor
     from sinddm_tpu_torch.models.clip.convert import clip_from_state_dict, random_clip_state_dict
@@ -217,6 +242,8 @@ def main(argv) -> None:
                 result[check] = check_sample(sharding, rank)
             elif check == "train":
                 result[check] = check_train(mesh, rank, out_dir)
+            elif check == "chunk":
+                result[check] = check_chunk(mesh, rank, out_dir)
             elif check == "clip":
                 result[check] = check_clip(sharding, rank)
             elif check == "guided":
