@@ -127,12 +127,26 @@ each of which exits non-zero when it fails:
    6, 7 per rank), held by ``walk_stats`` beside the single walk against
    itself and a control on other draws; (d) ``--mode sample --mesh_data 2``
    through the CLI on two processes against one; (e) a one-rank NCCL world
-   on the card running the port's gather and gradient all-reduce.
+   on the card running the port's gather and gradient all-reduce;
+12. the dot-formulated denoiser executor (``models/fast_denoiser.py``,
+   ``make_model_fn(model, "fp32_dot" | "bf16_dot")``: every conv as matrix
+   products a tap, cuBLAS's, no kernel of its own) on phase 5's pyramid and
+   weights: (a) one finest-scale call, ``fp32_dot`` against the plain path
+   and the kernel path and ``bf16_dot`` against the plain path, with
+   cuBLAS's TF32 on around them so the executor's own fp32 scope is what
+   holds, and a control with that scope taken out, which must break the
+   fp32 bound; (b) the batch-2 walk under ``fp32_dot`` on phase 5's draws
+   against phase 5's kernel walk; (c) the l3 block through the dot path
+   beside kernels 2 + 1 and cuDNN's two 3x3 products, fp32 and bf16, one
+   finest call of each executor (its kernel launches, counted as the
+   kernel nodes of a CUDA graph that captures it, its device time and
+   where that goes), and the B=16 walk through each, with the peak GB
+   above what is held.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``; the ``[paths]`` line
 before them holds the walks' times (phase 9's under ``i2i_roi``, phase 10's
-under ``bucketed``, phase 11's under ``mesh``).
+under ``bucketed``, phase 11's under ``mesh``, phase 12's under ``dot``).
 
 Tolerances (max |kernel - plain| against the plain version's values):
   * fp32 conv block: atol 2e-4 + rtol 2e-4 per element -- the kernel sums
@@ -144,6 +158,11 @@ Tolerances (max |kernel - plain| against the plain version's values):
     half a bf16 ulp of the exact value, + 1e-4 for the fp32 sum (the sum is
     rounded once, and a rounding tie may go either way);
   * finest-scale denoiser call (four blocks chained): 1e-4 of max |plain|;
+    the same for the dot executor's ``fp32_dot`` call against the plain and
+    the kernel call (its TF32 control must exceed it), and 5e-2 of max
+    |plain| for ``bf16_dot`` (the JAX package's bound,
+    tests/test_fast_denoiser.py); its batch-2 walk 2e-3 absolute against
+    phase 5's kernel walk, as below;
   * batch-2 walk, 246 chained denoiser calls: 2e-3 absolute on [-1, 1]; the
     same for the batch-2 style transfer (15 calls, trained weights) and ROI
     walk (246, random weights) of phase 9. On the trained weights the ROI
@@ -240,6 +259,7 @@ Tolerances (max |kernel - plain| against the plain version's values):
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -605,7 +625,6 @@ def run_cli(tag, argv):
     """One ``cli.run`` (what ``cli.main`` calls) with its output echoed
     under ``tag``: (its outputs, wall seconds ending in a synchronize, the
     conv_block and dw_conv launches it made, its printed text)."""
-    import contextlib
     import io
 
     from sinddm_tpu_torch import cli
@@ -845,8 +864,6 @@ def train_phase(results) -> dict:
     checkpoint resumed; ``--precompile``. cuDNN's TF32 is on here,
     PyTorch's default, so it is the trainer's own scope that keeps its steps
     (and its captures) in fp32."""
-    import contextlib
-
     import numpy as np
 
     from sinddm_tpu_torch.ops import conv_block as cb
@@ -2199,6 +2216,173 @@ def mesh_phase() -> dict:
     return out
 
 
+def graph_launches(run) -> int:
+    """The kernels one call of ``run`` launches: the kernel nodes of a CUDA
+    graph that captures it (after a warm call). torch.profiler's count is
+    not used for this: it also records kernels still running from the work
+    queued before it, and in a process that has profiled before it has
+    dropped a whole call's kernels."""
+    import ctypes
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        run()
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    driver.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle, n = graph.raw_cuda_graph(), ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if driver.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
+
+
+def dot_phase(model, sched, sizes_hw, walk, kernel_walk_b2, gen) -> dict:
+    """Phase 12: the dot-formulated denoiser executor
+    (``models/fast_denoiser.py``, ``make_model_fn(model, "fp32_dot" |
+    "bf16_dot")``) on phase 5's pyramid and weights, beside kernels 1-2:
+    (a) one finest-scale call against the plain path and the kernel path,
+    and its TF32 control; (b) the batch-2 walk on phase 5's draws against
+    phase 5's kernel walk; (c) times, peak memory and launches a call."""
+    from sinddm_tpu_torch.apps.sampling import make_model_fn, sample_scales
+    from sinddm_tpu_torch.models import fast_denoiser as fd
+    from sinddm_tpu_torch.models.denoiser import compute_cond_vec
+    from sinddm_tpu_torch.ops import conv_block as cb
+
+    t_phase = time.perf_counter()
+    h, w = BALLOONS_SIZES_HW[-1]
+    dot = {name: make_model_fn(model, name) for name in ("fp32_dot", "bf16_dot")}
+    mm = torch.backends.cuda.matmul
+    out = {}
+
+    # (a) one finest-scale call. cuBLAS's TF32 is on around the dot calls, so
+    # the executor's own scope is what keeps fp32_dot's products fp32; the
+    # control takes that scope out and must break the fp32 bound
+    with torch.no_grad():
+        x = torch.randn((BATCH, h, w, 3), generator=gen, device="cuda")
+        t = torch.full((BATCH,), 10, dtype=torch.long, device="cuda")
+        plain, kernel = model.run(x, t, 4.0, cb.conv_block_reference), model(x, t, 4.0)
+        scope = fd.matmul_precision
+        mm.allow_tf32 = True
+        try:
+            calls = {name: fn(x, t, 4.0) for name, fn in dot.items()}
+            fd.matmul_precision = lambda *a: contextlib.nullcontext()
+            calls["fp32_dot TF32 (control)"] = dot["fp32_dot"](x, t, 4.0)
+        finally:
+            fd.matmul_precision = scope
+            mm.allow_tf32 = False
+        torch.cuda.synchronize()
+    checks = (("fp32_dot", plain, "plain", 1e-4), ("fp32_dot", kernel, "kernel", 1e-4),
+              ("bf16_dot", plain, "plain", 5e-2), ("fp32_dot TF32 (control)", plain, "plain", 1e-4))
+    out["call"] = {}
+    for name, ref, ref_name, tol in checks:
+        _, max_abs, rel = err_stats(calls[name], ref)
+        control = "control" in name
+        ok = (rel > tol) if control else (rel <= tol and bool(torch.isfinite(calls[name]).all()))
+        say(f"[check dot {name} vs {ref_name} {BATCH}x{h}x{w} dim={DIM}] max_abs {max_abs:.3e} rel {rel:.3e} "
+            f"({'must exceed' if control else '<='} {tol:g} * max|{ref_name}|) {'ok' if ok else 'FAIL'}")
+        out["call"][f"{name} vs {ref_name}"] = rel
+        if not ok:
+            fail(f"the dot executor's call, {name} against the {ref_name} path: rel {rel:.3e} against {tol:g}"
+                 + (": the fp32 bound cannot tell TF32 from fp32" if control else ""))
+    del x, plain, kernel, calls
+
+    # (b) the batch-2 walk through make_model_fn on phase 5's draws
+    ours = sample_scales(dot["fp32_dot"], sched, sizes_hw, batch_size=2,
+                         generator=torch.Generator(device="cuda").manual_seed(1), **walk)[-1]
+    max_abs = (ours - kernel_walk_b2).abs().max().item()
+    ok = max_abs <= 2e-3
+    say(f"[check dot walk batch 2, fp32_dot vs kernel] final-scale max_abs {max_abs:.3e} (atol 2e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    out["walk_b2_max_abs"] = max_abs
+    if not ok:
+        fail("the walk through the dot executor disagrees with the kernel walk")
+
+    def peak_gb(run, held):
+        """The peak GB ``run`` allocates above what was held before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    # (c) the l3 block: the dot path beside kernels 2 + 1 and cuDNN's two 3x3 products
+    out["l3_block"] = {}
+    with torch.no_grad():
+        x3 = torch.randn((BATCH, h, w, DIM), generator=gen, device="cuda")
+        cond = compute_cond_vec(model, torch.full((BATCH,), 10, device="cuda"), 4.0)
+        for dtype, dname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            xd, cd = x3.to(dtype), cond.to(dtype)
+            args = model.l3.block_args(xd, cd)
+            held = torch.cuda.memory_allocated()
+            dot_ms = time_ms(lambda: fd.block_dot(model.l3, xd, cd, dtype), reps=3, warm=1)
+            dot_gb = peak_gb(lambda: fd.block_dot(model.l3, xd, cd, dtype), held)
+            k_ms = time_ms(lambda: cb.conv_block(*args), reps=10)
+            k_gb = peak_gb(lambda: cb.conv_block(*args), held)
+            w1, w2 = (wt.to(dtype).permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+                      for wt in (model.l3.net_conv1.weight, model.l3.net_conv2.weight))
+            h1, g = (xd.permute(0, 3, 1, 2), torch.randn_like(xd).permute(0, 3, 1, 2))
+            lib_ms = time_ms(lambda: (F.conv2d(h1, w1, padding=1), F.conv2d(g, w2, padding=1)), reps=10)
+            say(f"[time dot l3 block {dname} {BATCH}x{h}x{w}x{DIM}] dot_ms {dot_ms:.3f} kernels_1_2_ms {k_ms:.3f} "
+                f"({dot_ms / k_ms:.2f}x) cudnn_3x3_products_ms {lib_ms:.3f} | peak GB above held: dot {dot_gb:.3f} "
+                f"kernels {k_gb:.3f}")
+            out["l3_block"][dname] = dict(dot_ms=dot_ms, kernels_ms=k_ms, cudnn_3x3_products_ms=lib_ms,
+                                          dot_peak_GB=dot_gb, kernels_peak_GB=k_gb)
+            del xd, cd, args, w1, w2, h1, g
+        del x3
+
+    # (c) one finest-scale call of each executor: its kernel launches, its
+    # device ms (CUDA events) and where that time goes (torch.profiler)
+    out["call_launches"], out["call_ms"] = {}, {}
+    x = torch.randn((BATCH, h, w, 3), generator=gen, device="cuda")
+    t = torch.full((BATCH,), 10, dtype=torch.long, device="cuda")
+    for name, fn in (("kernel", model), *dot.items()):
+        with torch.no_grad():
+            n = graph_launches(lambda: fn(x, t, 4.0))
+            ms = time_ms(lambda: fn(x, t, 4.0), reps=3)
+            prof = profile_walk(lambda: fn(x, t, 4.0))
+        say(f"[time dot {name} call {BATCH}x{h}x{w}] launches {n} ms {ms:.2f}")
+        out["call_launches"][name], out["call_ms"][name] = n, ms
+        if prof is None:
+            say(f"[profile dot {name}] torch.profiler recorded no device activity: breakdown not measured")
+            continue
+        by_name, busy, _ = prof
+        for kname, (us, _) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            say(f"[profile dot {name}] {us / busy:7.2%} of device time {kname[:100]}")
+    del x, t
+
+    # (c) the B=16 walk through each executor, the kernel path first
+    out["walk"] = {}
+    for name, fn in (("kernel", model), *dot.items()):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = sample_scales(fn, sched, sizes_hw, batch_size=BATCH,
+                             generator=torch.Generator(device="cuda").manual_seed(0), **walk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        if not all(bool(torch.isfinite(o).all()) for o in outs) or tuple(outs[-1].shape) != (BATCH, h, w, 3):
+            fail(f"the B={BATCH} walk through {name} gave non-finite values or shape {tuple(outs[-1].shape)}")
+        say(f"[walk dot {name}] batch {BATCH} dim {DIM} wall_s {wall:.3f} peak GB above held {peak:.3f}")
+        out["walk"][name] = dict(wall_s=wall, peak_GB=peak)
+        del outs
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[dot] phase 12 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2826,6 +3010,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     results["mesh"] = mesh_phase()
 
+    # ---- 12. the dot-formulated denoiser executor -------------------------------------
+    results["dot"] = dot_phase(model, sched, sizes_hw, walk, small["kernel"], gen)
+
     # ---- records ---------------------------------------------------------------
     replaces = {
         "conv_block": "sinddm_tpu/ops/pallas_conv.py:234",
@@ -2861,6 +3048,7 @@ def main() -> None:
         "win3_vs_exact": results["win3_vs_exact"], "win3_iteration_vs_exact": results["win3_iteration"],
         "warp_adjoints_256_views": results["warp_256_views"], "train": results["train"],
         "i2i_roi": results["i2i_roi"], "bucketed": results["bucketed"], "mesh": results["mesh"],
+        "dot": results["dot"],
     }))
     say(f"[done] total_s {time.perf_counter() - t_start:.1f}")
     say(json.dumps({"kernels": kernels}))

@@ -15,7 +15,10 @@ sharded global array that its ``fetch`` gathers.
 The JAX ``sample_scales`` option ``precompile`` (warming JAX's per-scale
 compile cache) has no counterpart here: PyTorch runs eagerly. Nor has
 ``guidance_params``, which keeps the CLIP tower out of the compiled
-program's constants: here the guidance hook simply holds its tower.
+program's constants: here the guidance hook simply holds its tower. Its
+executor options (``use_pallas``, ``fast_mode``) become the ``model_fn``
+that :func:`make_model_fn` returns: the model itself runs the kernels on
+the card, so ``use_pallas`` has nothing left to select.
 """
 
 from __future__ import annotations
@@ -32,9 +35,27 @@ from sinddm_tpu_torch.diffusion.core import (
     sample_scale0,
     sample_via_scale,
 )
+from sinddm_tpu_torch.models.denoiser import SinDDMNet
+from sinddm_tpu_torch.models.fast_denoiser import apply_denoiser_dot
 from sinddm_tpu_torch.ops.resize import resize_bilinear
 from sinddm_tpu_torch.parallel.mesh import NamedSharding, require_named_sharding, split_model_fn
 from sinddm_tpu_torch.schedules import Schedules
+
+
+FAST_MODES = {"fp32_dot": torch.float32, "bf16_dot": torch.bfloat16}
+
+
+def make_model_fn(model: SinDDMNet, fast_mode: Optional[str] = None) -> ModelFn:
+    """The denoiser executor of a walk: ``model`` itself (kernels 1-2 on
+    the card, their plain versions on the CPU), or with ``fast_mode``
+    ("fp32_dot" / "bf16_dot") the dot-formulated executor over its parameters
+    (:func:`~sinddm_tpu_torch.models.fast_denoiser.apply_denoiser_dot`)."""
+    if fast_mode is None:
+        return model
+    if fast_mode not in FAST_MODES:
+        raise ValueError(f"unknown fast_mode {fast_mode!r}: one of {sorted(FAST_MODES)} or None")
+    dt = FAST_MODES[fast_mode]
+    return lambda x, t, s: apply_denoiser_dot(model, x, t, s, compute_dtype=dt)
 
 
 def via_scale_size(
