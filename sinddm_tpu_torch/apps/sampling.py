@@ -37,9 +37,11 @@ from sinddm_tpu_torch.diffusion.core import (
 )
 from sinddm_tpu_torch.models.denoiser import SinDDMNet
 from sinddm_tpu_torch.models.fast_denoiser import apply_denoiser_dot
+from sinddm_tpu_torch.ops import conv_block, dw_conv
 from sinddm_tpu_torch.ops.resize import resize_bilinear
 from sinddm_tpu_torch.parallel.mesh import NamedSharding, require_named_sharding, split_model_fn
 from sinddm_tpu_torch.schedules import Schedules
+from sinddm_tpu_torch.utils.profiling import span
 
 
 FAST_MODES = {"fp32_dot": torch.float32, "bf16_dot": torch.bfloat16}
@@ -56,6 +58,11 @@ def make_model_fn(model: SinDDMNet, fast_mode: Optional[str] = None) -> ModelFn:
         raise ValueError(f"unknown fast_mode {fast_mode!r}: one of {sorted(FAST_MODES)} or None")
     dt = FAST_MODES[fast_mode]
     return lambda x, t, s: apply_denoiser_dot(model, x, t, s, compute_dtype=dt)
+
+
+def _kernel_launches() -> dict:
+    """The launch counters of kernels 1 and 2, read at a scale span's edges."""
+    return {"conv_block.launches": conv_block.launches, "dw_conv.launches": dw_conv.launches}
 
 
 def via_scale_size(
@@ -157,40 +164,47 @@ def sample_scales(
 
     outputs: List[torch.Tensor] = []
     gcarry: Any = None
-    with torch.no_grad():
+    with torch.no_grad(), span("sinddm.walk", batch=batch_size, n_scales=len(custom_scales)):
         for i, s in enumerate(int(v) for v in custom_scales):
             aux = None
             if i == 0 and start_noise:
                 size0 = sizes_hw[custom_image_size_idxs[0]]
                 hw = (int(size0[0] * scale_mul[0]), int(size0[1] * scale_mul[1]))
-                gfn, gcarry = hook(s, gcarry, hw)
-                x, gcarry, aux = sample_scale0(
-                    model_fn, sched, (batch_size, hw[0], hw[1], 3), s=s,
-                    t_min=t_min_of(s), omega=omega, noise_fn=noise_fn,
-                    device=device, guidance_fn=gfn, guidance_carry=gcarry,
-                    collect_interm=collect_interm,
-                )
+                steps = sched.num_timesteps - t_min_of(s)
             elif i == 0:
                 if start_image is None:
                     raise ValueError("start_noise=False needs start_image")
-                img = torch.as_tensor(np.asarray(start_image), dtype=torch.float32, device=device)
-                x = img[None].expand((batch_size,) + tuple(img.shape)).contiguous()
+                hw, steps = tuple(np.shape(start_image)[:2]), 0
             else:
-                size_hw = via_scale_size(
+                hw = via_scale_size(
                     sizes_hw, s=s, n_scales=n_scales, scale_factor=scale_factor,
                     scale_mul=scale_mul, custom_sample=custom_sample,
                     custom_img_size_idx=int(custom_image_size_idxs[i]),
                 )
-                if carry_transform is not None and gcarry is not None:
-                    gcarry = carry_transform(s, gcarry, size_hw)
-                gfn, gcarry = hook(s, gcarry, size_hw)
-                x, gcarry, aux = sample_via_scale(
-                    model_fn, sched, resize_bilinear(outputs[-1], size_hw), s=s,
-                    total_t=int(custom_t_list[s - 1]), t_min=t_min_of(s),
-                    reblurring=reblurring, omega=omega, noise_fn=noise_fn,
-                    guidance_fn=gfn, guidance_carry=gcarry,
-                    collect_interm=collect_interm,
-                )
+                steps = int(custom_t_list[s - 1]) - t_min_of(s)
+            with span("sinddm.scale", counters=_kernel_launches, s=s, H=hw[0], W=hw[1], steps=steps):
+                if i == 0 and start_noise:
+                    gfn, gcarry = hook(s, gcarry, hw)
+                    x, gcarry, aux = sample_scale0(
+                        model_fn, sched, (batch_size, hw[0], hw[1], 3), s=s,
+                        t_min=t_min_of(s), omega=omega, noise_fn=noise_fn,
+                        device=device, guidance_fn=gfn, guidance_carry=gcarry,
+                        collect_interm=collect_interm,
+                    )
+                elif i == 0:
+                    img = torch.as_tensor(np.asarray(start_image), dtype=torch.float32, device=device)
+                    x = img[None].expand((batch_size,) + tuple(img.shape)).contiguous()
+                else:
+                    if carry_transform is not None and gcarry is not None:
+                        gcarry = carry_transform(s, gcarry, hw)
+                    gfn, gcarry = hook(s, gcarry, hw)
+                    x, gcarry, aux = sample_via_scale(
+                        model_fn, sched, resize_bilinear(outputs[-1], hw), s=s,
+                        total_t=int(custom_t_list[s - 1]), t_min=t_min_of(s),
+                        reblurring=reblurring, omega=omega, noise_fn=noise_fn,
+                        guidance_fn=gfn, guidance_carry=gcarry,
+                        collect_interm=collect_interm,
+                    )
             if collect_aux is not None:
                 collect_aux.append(aux)
             outputs.append(x)

@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from sinddm_tpu_torch.schedules import Schedules
+from sinddm_tpu_torch.utils.profiling import span
 
 # model_fn(x [B,H,W,C], t [B], s [B]) -> eps [B,H,W,C]
 ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -142,40 +143,42 @@ def p_sample_step(
 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """One reverse step x_t -> x_{t-1}; draws one noise tensor. Returns
     (x_next, guidance_carry, guidance_aux)."""
-    b = x.shape[0]
-    # t and s as device fills: a host-to-device copy would sync every step
-    t_vec = torch.full((b,), int(t), dtype=torch.long, device=x.device)
-    s_vec = torch.full((b,), float(s), dtype=torch.float32, device=x.device)
-    eps = model_fn(x, t_vec, s_vec)
+    with span("sinddm.step", s=s, t=int(t)):
+        b = x.shape[0]
+        # t and s as device fills: a host-to-device copy would sync every step
+        t_vec = torch.full((b,), int(t), dtype=torch.long, device=x.device)
+        s_vec = torch.full((b,), float(s), dtype=torch.float32, device=x.device)
+        eps = model_fn(x, t_vec, s_vec)
 
-    gammas_row = sched.gammas_row_sampling(s) if (reblurring and s > 0) else None
-    x_recon, x_t_mix = predict_start_from_noise(
-        sched, x, t_vec, eps, s=s, reblurring=reblurring,
-        img_prev=img_prev, gammas_row=gammas_row,
-    )
-    aux: Dict[str, torch.Tensor] = {}
-    if guidance_fn is not None:
-        x_recon, guidance_carry, aux = guidance_fn(x_recon, x, int(t), s, guidance_carry)
-    if reblurring and s > 0:
-        # re-mix with gamma_{t-1} when t > 0
-        g_prev = extract(gammas_row, torch.clamp(t_vec - 1, min=0))
-        is_pos = (t_vec > 0).to(x.dtype)[:, None, None, None]
-        x_tm1_mix = is_pos * (g_prev * img_prev + (1.0 - g_prev) * x_recon) + (
-            1.0 - is_pos
-        ) * x_recon
-    else:
-        x_tm1_mix = x_recon
+        gammas_row = sched.gammas_row_sampling(s) if (reblurring and s > 0) else None
+        x_recon, x_t_mix = predict_start_from_noise(
+            sched, x, t_vec, eps, s=s, reblurring=reblurring,
+            img_prev=img_prev, gammas_row=gammas_row,
+        )
+        aux: Dict[str, torch.Tensor] = {}
+        if guidance_fn is not None:
+            with span("sinddm.guidance", s=s, t=int(t)):
+                x_recon, guidance_carry, aux = guidance_fn(x_recon, x, int(t), s, guidance_carry)
+        if reblurring and s > 0:
+            # re-mix with gamma_{t-1} when t > 0
+            g_prev = extract(gammas_row, torch.clamp(t_vec - 1, min=0))
+            is_pos = (t_vec > 0).to(x.dtype)[:, None, None, None]
+            x_tm1_mix = is_pos * (g_prev * img_prev + (1.0 - g_prev) * x_recon) + (
+                1.0 - is_pos
+            ) * x_recon
+        else:
+            x_tm1_mix = x_recon
 
-    if clip_denoised:
-        x_tm1_mix = torch.clamp(x_tm1_mix, -1.0, 1.0)
-        x_t_mix = torch.clamp(x_t_mix, -1.0, 1.0)
+        if clip_denoised:
+            x_tm1_mix = torch.clamp(x_tm1_mix, -1.0, 1.0)
+            x_t_mix = torch.clamp(x_t_mix, -1.0, 1.0)
 
-    mean, logvar = q_posterior(
-        sched, x_tm1_mix, x_t_mix, x, t_vec, s=s, reblurring=reblurring, omega=omega
-    )
-    noise = noise_fn(tuple(x.shape)).to(device=x.device, dtype=x.dtype)
-    nonzero = (t_vec > 0).to(x.dtype)[:, None, None, None]
-    return mean + nonzero * torch.exp(0.5 * logvar) * noise, guidance_carry, aux
+        mean, logvar = q_posterior(
+            sched, x_tm1_mix, x_t_mix, x, t_vec, s=s, reblurring=reblurring, omega=omega
+        )
+        noise = noise_fn(tuple(x.shape)).to(device=x.device, dtype=x.dtype)
+        nonzero = (t_vec > 0).to(x.dtype)[:, None, None, None]
+        return mean + nonzero * torch.exp(0.5 * logvar) * noise, guidance_carry, aux
 
 
 def _reverse_loop(

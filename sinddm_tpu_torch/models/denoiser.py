@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sinddm_tpu_torch.ops.conv_block import conv_block, gelu
+from sinddm_tpu_torch.utils.profiling import span
 
 TIME_DIM = 32
 
@@ -151,23 +152,24 @@ class SinDDMNet(nn.Module):
         (:func:`conv_block`, its plain version to compare against, or
         :func:`~sinddm_tpu_torch.ops.conv_block.conv_block_train` to train),
         in the valid-mask mode when ``mask`` is given."""
-        in_dtype = x.dtype
-        dt = self.compute_dtype
-        cond = compute_cond_vec(self, time, scale)
-        h = x.to(dt).contiguous()
-        kw = {}
-        if mask is not None:
-            mask = mask.to(dt)
-            kw["mask"] = (mask[..., None] if mask.ndim == 3 else mask).contiguous()
-        for block in (self.l1, self.l2, self.l3, self.l4):
-            h = block_fn(*block.block_args(h, cond), **kw)
-        fc = self.final_conv
-        if mask is not None:
-            h = h * kw["mask"]
-        out = h @ fc.weight.reshape(fc.weight.shape[2:]).to(dt) + fc.bias.to(dt)
-        if mask is not None:
-            out = out * kw["mask"]
-        return out.to(in_dtype)
+        with span("sinddm.denoiser", B=x.shape[0], H=x.shape[1], W=x.shape[2]):
+            in_dtype = x.dtype
+            dt = self.compute_dtype
+            cond = compute_cond_vec(self, time, scale)
+            h = x.to(dt).contiguous()
+            kw = {}
+            if mask is not None:
+                mask = mask.to(dt)
+                kw["mask"] = (mask[..., None] if mask.ndim == 3 else mask).contiguous()
+            for block in (self.l1, self.l2, self.l3, self.l4):
+                h = block_fn(*block.block_args(h, cond), **kw)
+            fc = self.final_conv
+            if mask is not None:
+                h = h * kw["mask"]
+            out = h @ fc.weight.reshape(fc.weight.shape[2:]).to(dt) + fc.bias.to(dt)
+            if mask is not None:
+                out = out * kw["mask"]
+            return out.to(in_dtype)
 
 
 def compute_cond_vec(

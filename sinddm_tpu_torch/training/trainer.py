@@ -123,6 +123,7 @@ from sinddm_tpu_torch.parallel import distributed
 from sinddm_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, Mesh, halo_slab, shard_params, split_range
 from sinddm_tpu_torch.pyramid import Pyramid
 from sinddm_tpu_torch.schedules import Schedules
+from sinddm_tpu_torch.utils.profiling import span
 
 # jax.nn.initializers.variance_scaling's "truncated_normal": the std of a
 # standard normal truncated to [-2, 2], by which the scale is divided so
@@ -301,61 +302,67 @@ class MultiscaleTrainer:
         device="cuda",
         mesh: Optional[Mesh] = None,
     ):
-        self.device = torch.device(device)
-        self.mesh = mesh
-        if model.compute_dtype != torch.float32:
-            raise ValueError(f"the trainer trains in float32, got a {model.compute_dtype} model")
-        wrong = {str(p.device) for p in model.parameters() if p.device.type != self.device.type}
-        if wrong:
-            raise ValueError(f"the trainer runs on {self.device}, but the model's parameters lie on {wrong}")
-        self.model = model.train()
-        self.sched = sched
-        self.pyramid = pyramid
-        self.cfg = train_cfg
-        self.diff_cfg = diff_cfg
-        self.results_folder = Path(results_folder)
-        self.results_folder.mkdir(parents=True, exist_ok=True)
+        with span("sinddm.trainer_init", device=str(device)):
+            self.device = torch.device(device)
+            self.mesh = mesh
+            if model.compute_dtype != torch.float32:
+                raise ValueError(f"the trainer trains in float32, got a {model.compute_dtype} model")
+            wrong = {str(p.device) for p in model.parameters() if p.device.type != self.device.type}
+            if wrong:
+                raise ValueError(f"the trainer runs on {self.device}, but the model's parameters lie on {wrong}")
+            self.model = model.train()
+            self.sched = sched
+            self.pyramid = pyramid
+            self.cfg = train_cfg
+            self.diff_cfg = diff_cfg
+            self.results_folder = Path(results_folder)
+            self.results_folder.mkdir(parents=True, exist_ok=True)
 
-        init_flax_params_(model, seed)
-        if mesh is not None:
-            shard_params(model, mesh)
-        self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
-        # on the card Adam is capturable, its learning rate a device tensor
-        # that a graph reads at every replay; the CPU has no capturable Adam
-        self._capturable = self.device.type == "cuda"
-        self._lr = torch.full((), train_cfg.train_lr, device=self.device) if self._capturable else None
-        self.opt = torch.optim.Adam(model.parameters(), lr=self._lr if self._capturable else train_cfg.train_lr,
-                                    betas=(0.9, 0.999), eps=1e-8, capturable=self._capturable)
-        self.scheduler = torch.optim.lr_scheduler.MultiStepLR(
-            self.opt, milestones=list(train_cfg.sched_milestones), gamma=train_cfg.lr_gamma)
-        self.step = 0
+            with span("sinddm.trainer_init.params"):
+                init_flax_params_(model, seed)
+                if mesh is not None:
+                    shard_params(model, mesh)
+            with span("sinddm.trainer_init.ema"):
+                self.ema_model = copy.deepcopy(model).eval().requires_grad_(False)
+            with span("sinddm.trainer_init.optimizer"):
+                # on the card Adam is capturable, its learning rate a device tensor
+                # that a graph reads at every replay; the CPU has no capturable Adam
+                self._capturable = self.device.type == "cuda"
+                self._lr = torch.full((), train_cfg.train_lr, device=self.device) if self._capturable else None
+                self.opt = torch.optim.Adam(model.parameters(), lr=self._lr if self._capturable else train_cfg.train_lr,
+                                            betas=(0.9, 0.999), eps=1e-8, capturable=self._capturable)
+                self.scheduler = torch.optim.lr_scheduler.MultiStepLR(
+                    self.opt, milestones=list(train_cfg.sched_milestones), gamma=train_cfg.lr_gamma)
+            self.step = 0
 
-        self.data_list = [
-            tuple(torch.as_tensor(np.asarray(a, np.float32))[None].to(self.device)
-                  for a in (pyramid.images[s], pyramid.recon_images[s]))
-            for s in range(pyramid.n_scales)
-        ]
-        # the padded chunk's stack, its gamma rows (a zero row for s = 0) and t ranges
-        self.canvas = _stack_padded(self.data_list, pyramid.sizes_hw)
-        gammas = sched.gammas.to(device=self.device, dtype=torch.float32)
-        self.gammas_all = torch.cat([torch.zeros((1, sched.num_timesteps), device=self.device), gammas])
-        self.trained = torch.tensor(sched.num_timesteps_trained, device=self.device)
-        w = np.asarray(sched.num_timesteps_trained, np.float64)
-        self._s_probs = w / w.sum()
-        self._s_probs_device = torch.tensor(self._s_probs, dtype=torch.float32, device=self.device)
-        self._rng = np.random.default_rng(seed + 1)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 2)
-        self.running_loss: List[float] = []
-        self.running_scale: List[int] = []
+            with span("sinddm.trainer_init.data"):
+                self.data_list = [
+                    tuple(torch.as_tensor(np.asarray(a, np.float32))[None].to(self.device)
+                          for a in (pyramid.images[s], pyramid.recon_images[s]))
+                    for s in range(pyramid.n_scales)
+                ]
+                # the padded chunk's stack, its gamma rows (a zero row for s = 0) and t ranges
+                self.canvas = _stack_padded(self.data_list, pyramid.sizes_hw)
+                gammas = sched.gammas.to(device=self.device, dtype=torch.float32)
+                self.gammas_all = torch.cat([torch.zeros((1, sched.num_timesteps), device=self.device), gammas])
+                self.trained = torch.tensor(sched.num_timesteps_trained, device=self.device)
+                w = np.asarray(sched.num_timesteps_trained, np.float64)
+                self._s_probs = w / w.sum()
+                self._s_probs_device = torch.tensor(self._s_probs, dtype=torch.float32, device=self.device)
+                self._rng = np.random.default_rng(seed + 1)
+                self.generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+            self.running_loss: List[float] = []
+            self.running_scale: List[int] = []
 
-        # the chunks' executor: CUDA graphs in one process on the card, one
-        # pool for all of them, on the process's capture stream
-        self.use_graphs = self.device.type == "cuda" and mesh is None
-        self._graphs: dict = {}
-        self.capture_seconds: dict = {}  # a shape's capture, host seconds (synchronize and instantiate included)
-        self._warm = collections.Counter()
-        self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
-        self._stream = _capture_stream(self.device) if self.use_graphs else None
+            # the chunks' executor: CUDA graphs in one process on the card, one
+            # pool for all of them, on the process's capture stream
+            self.use_graphs = self.device.type == "cuda" and mesh is None
+            self._graphs: dict = {}
+            self.capture_seconds: dict = {}  # a shape's capture, host seconds (synchronize and instantiate included)
+            self._warm = collections.Counter()
+            with span("sinddm.trainer_init.graphs"):
+                self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
+                self._stream = _capture_stream(self.device) if self.use_graphs else None
 
     def model_fn(self, x, t, s, mask=None):
         """The training forward: the denoiser with the differentiable block
@@ -471,24 +478,26 @@ class MultiscaleTrainer:
         Returns the losses, fetched once."""
         n_scales = self.pyramid.n_scales
         per = max(n_steps // n_scales, 1)
-        order = self._rng.permutation(n_scales)
-        losses, done = [], 0
-        for idx, s in enumerate(order):
-            k = min(per if idx < n_scales - 1 else n_steps - done, n_steps - done)
-            if k <= 0:
-                break
-            losses.append(self.train_scale(int(s), k))
-            done += k
-        return torch.cat(losses).cpu().numpy() if losses else np.zeros((0,), np.float32)
+        with span("sinddm.train_chunk", n_steps=n_steps, mode="grouped"):
+            order = self._rng.permutation(n_scales)
+            losses, done = [], 0
+            for idx, s in enumerate(order):
+                k = min(per if idx < n_scales - 1 else n_steps - done, n_steps - done)
+                if k <= 0:
+                    break
+                losses.append(self.train_scale(int(s), k))
+                done += k
+            return torch.cat(losses).cpu().numpy() if losses else np.zeros((0,), np.float32)
 
     def train_chunk(self, n_steps: int) -> np.ndarray:
         """``n_steps`` padded steps, each at a scale drawn on the device;
         the losses and the scales fetched once. Returns the losses."""
         if self.diff_cfg.loss_type not in PADDED_LOSSES:
             raise ValueError(f"the padded chunk takes loss_type {PADDED_LOSSES}, not {self.diff_cfg.loss_type!r}")
-        out = torch.empty((2, n_steps), device=self.device)
-        self._run(CANVAS, n_steps, out[0], out[1])
-        losses, scales = out.cpu().numpy()
+        with span("sinddm.train_chunk", n_steps=n_steps, mode="padded"):
+            out = torch.empty((2, n_steps), device=self.device)
+            self._run(CANVAS, n_steps, out[0], out[1])
+            losses, scales = out.cpu().numpy()
         self.running_scale.extend(int(v) for v in scales)
         return losses
 
@@ -499,11 +508,30 @@ class MultiscaleTrainer:
         is a replay of ``key``'s graph once it is captured (module
         docstring)."""
         for i in range(k):
-            loss, s = self._graph_step(key) if self.use_graphs else self._step_fn(key)()
-            losses[i].copy_(loss)
-            if scales is not None:
-                scales[i].copy_(s)
-            self._after_step()
+            kind = self._step_kind(key)
+            with span("sinddm.train_step", key=key, kind=kind, ema=self._ema_due()):
+                loss, s = self._graph_step(key, kind) if self.use_graphs else self._step_fn(key)()
+                losses[i].copy_(loss)
+                if scales is not None:
+                    scales[i].copy_(s)
+                self._after_step()
+
+    def _ema_due(self) -> bool:
+        """Whether the next step's :meth:`_after_step` updates the EMA."""
+        return self.step % self.cfg.update_ema_every == 0
+
+    def _step_kind(self, key) -> str:
+        """How the next step of shape ``key`` runs: "replay" (of its graph),
+        "capture" (its kind's graphs captured, then replayed) or "eager"."""
+        if not self.use_graphs:
+            return "eager"
+        if key in self._graphs:
+            return "replay"
+        return "capture" if all(self._warm[k] >= GRAPH_WARMUP_STEPS for k in self._shapes_of_kind(key)) else "eager"
+
+    def _shapes_of_kind(self, key) -> list:
+        """Every shape of ``key``'s kind: the canvas, or every scale."""
+        return [CANVAS] if key == CANVAS else [("scale", s) for s in range(self.pyramid.n_scales)]
 
     def _step_fn(self, key):
         """The device work of one step of shape ``key``."""
@@ -513,24 +541,23 @@ class MultiscaleTrainer:
         h, w = self.canvas[0].shape[1:3] if key == CANVAS else self.pyramid.sizes_hw[key[1]]
         return h * w
 
-    def _graph_step(self, key):
-        """One step of shape ``key`` on the card: a replay of its graph, or,
-        until every shape of its kind (every scale, or the canvas) has run
-        :data:`GRAPH_WARMUP_STEPS` eager steps on the capture stream, one
-        more. Then the kind's graphs are captured, the largest shape first,
-        so that each smaller step fits in the blocks the larger captures
-        left free in the shared pool (smallest first, the pool grows by most
-        of each step's peak)."""
-        entry = self._graphs.get(key)
-        kind = [CANVAS] if key == CANVAS else [("scale", s) for s in range(self.pyramid.n_scales)]
-        if entry is None and all(self._warm[k] >= GRAPH_WARMUP_STEPS for k in kind):
-            for k in sorted(kind, key=self._pixels, reverse=True):
+    def _graph_step(self, key, kind: str):
+        """One step of shape ``key`` on the card, as :meth:`_step_kind` gave
+        it: a replay of its graph, or, until every shape of its kind (every
+        scale, or the canvas) has run :data:`GRAPH_WARMUP_STEPS` eager steps
+        on the capture stream, one more. Then the kind's graphs are
+        captured, the largest shape first, so that each smaller step fits in
+        the blocks the larger captures left free in the shared pool (smallest
+        first, the pool grows by most of each step's peak)."""
+        if kind == "capture":
+            for k in sorted(self._shapes_of_kind(key), key=self._pixels, reverse=True):
                 if k not in self._graphs:
                     t0 = time.perf_counter()
-                    self._graphs[k] = self._capture(self._step_fn(k))
+                    with span("sinddm.graph_capture", key=k):
+                        self._graphs[k] = self._capture(self._step_fn(k))
                     self.capture_seconds[k] = time.perf_counter() - t0
+        if kind != "eager":
             entry = self._graphs[key]
-        if entry is not None:
             entry.graph.replay()
             return entry.loss, entry.scale
         self._warm[key] += 1

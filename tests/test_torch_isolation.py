@@ -39,7 +39,7 @@ from sinddm_tpu_torch.models.convert import denoiser_from_flax, random_flax_para
 from sinddm_tpu_torch.models.denoiser import SinDDMNet
 from sinddm_tpu_torch.parallel import distributed
 from sinddm_tpu_torch.schedules import make_schedules
-from sinddm_tpu_torch.utils.profiling import phase_timer, trace
+from sinddm_tpu_torch.utils.profiling import trace
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "regex", "sinddm_tpu"}
@@ -120,7 +120,6 @@ ENTRY_POINTS = {
     "profiling.trace": lambda: trace("unused").__enter__(),
     # a world asked for on the card needs a card: it never falls back to the CPU
     "distributed.initialize": lambda: distributed.initialize("127.0.0.1:1", 2, 0),
-    "profiling.phase_timer": lambda: phase_timer("unused").__enter__(),
 }
 
 
