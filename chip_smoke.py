@@ -582,8 +582,10 @@ def profile_groups(tag, what, unit, n, run):
 
 def tensor_core_check(build) -> None:
     """Fail unless the SASS of every instantiation of the conv block's 3x3
-    kernel holds HMMA instructions of its type (TF32 for fp32, BF16 for
-    bf16): the stages run on the tensor cores, not the SIMT cores."""
+    kernels holds tensor-core instructions of its type: HMMA (``mma.sync``,
+    TF32 for fp32, BF16 for bf16), or HGMMA TF32 (``wgmma``) for the fp32
+    stages of ``conv3x3_tc_kernel_sm90``: the stages run on the tensor
+    cores, not the SIMT cores."""
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     res = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("conv_block"))],
                          capture_output=True, text=True, timeout=300)
@@ -596,13 +598,14 @@ def tensor_core_check(build) -> None:
             fn = m.group(1)
             forms[fn] = collections.Counter()
         elif fn is not None:
-            forms[fn].update(re.findall(r"\bHMMA\.[\w.]+", line))
+            forms[fn].update(re.findall(r"\bH(?:G)?MMA\.[\w.]+", line))
     convs = {f: c for f, c in forms.items() if "conv3x3" in f}
     for f, c in convs.items():
         say(f"[sass conv_block] {f}: {dict(c) if c else 'no HMMA'}")
     want = lambda f: "BF16" if "bfloat16" in f else "TF32"  # noqa: E731
-    bad = [f for f, c in convs.items() if not any(want(f) in form for form in c)]
-    if len(convs) < 6 or bad:
+    op = lambda f: "HGMMA" if "sm90" in f else "HMMA"  # noqa: E731
+    bad = [f for f, c in convs.items() if not any(form.startswith(op(f)) and want(f) in form for form in c)]
+    if len(convs) < 12 or bad:
         fail(f"conv_block's 3x3 kernels without tensor-core HMMA ({len(convs)} found): {bad}")
 
 

@@ -61,8 +61,10 @@ def make_model_fn(model: SinDDMNet, fast_mode: Optional[str] = None) -> ModelFn:
 
 
 def _kernel_launches() -> dict:
-    """The launch counters of kernels 1 and 2, read at a scale span's edges."""
-    return {"conv_block.launches": conv_block.launches, "dw_conv.launches": dw_conv.launches}
+    """The launch counters of kernels 1 and 2, read at a scale span's edges;
+    kernel 1's launches on wgmma among them."""
+    return {"conv_block.launches": conv_block.launches, "conv_block.wgmma_launches": conv_block.wgmma_launches,
+            "dw_conv.launches": dw_conv.launches}
 
 
 def via_scale_size(

@@ -58,12 +58,23 @@
 // once: 2*B*H*W*(C+Co)*sizeof(T) bytes, 1.89 GB for the fp32 160->160 block
 // at the finest shape (0.56 ms at 3.35 TB/s).
 //
-// Left for a `wgmma`/TMA kernel, and why not here: TMA needs 16-byte global
-// strides, which l1's 3-channel h1 (12 / 6 bytes a pixel) and the tested
-// C = 12, Co = 8 / 24 do not have; TF32 `wgmma` takes only K-major operands,
-// and HWIO weights are N-major, so it needs a weight re-layout; and
-// descriptors, swizzles and an mbarrier pipeline at once make a kernel
-// that is hard to check. Fusing the three launches comes with it.
+// fp32 on `wgmma` (`conv3x3_tc_kernel_sm90`, below): where the 3x3 input's
+// channel count and Co are multiples of 8 (`ops/conv_block.py`
+// `wgmma_route`; in the walk every stage but l1's conv1), the fp32 stages
+// run as warpgroup `wgmma.m64n80k8` TF32 products with the same 3xTF32
+// split, products in the same order and the same per-chunk partial sums:
+// A (the activations) split in registers as above, B (the weights) read by
+// descriptor from shared memory, split into TF32 hi / lo and laid out
+// K-major on the host once per weight version (`split_weights`), which
+// removes the re-layout that TF32 `wgmma`'s K-major operands need. Its
+// outputs have equalled this kernel's bit for bit on every shape compared
+// on the card. What bounds it: the tensor cores at 3x the TF32 rate, of
+// which it reaches ~0.6 in the l3 stages at the finest shape and 0.52 over
+// the walk (PERF.md §5-6). Left on `mma.sync`: bf16; l1's conv1, whose
+// 3-channel h1 (12 bytes a pixel) gives neither 16-byte copies nor a K
+// chunk; the tested odd shapes (C = 12, 90, Co = 100). TMA with tensor maps
+// is not used: the weights come by one bulk copy a chunk, the halo and x by
+// `cp.async` (x at any alignment and C). Fusing the three launches is next.
 //
 // Types: T = float, or __nv_bfloat16 with fp32 accumulation. In bf16 the
 // intermediates h1 and g are rounded to bf16 before each product, as the TPU
@@ -480,6 +491,421 @@ int conv_stage2(const void* g_, const void* w2_, const void* b2_, const void* x_
   return (int)launch_conv3x3<T, kProjRes>(a, B, device, stream);
 }
 
+// ---- fp32 stages on Hopper wgmma -------------------------------------------
+//
+// The same two stages in fp32, for 3x3 inputs and outputs whose channel
+// counts are multiples of 8 (`ops/conv_block.py` `wgmma_route`): the K loop's
+// chunks stay 8 channels, the halo tile and the 9 taps as above, but the
+// products are warpgroup `wgmma.m64n80k8` with A (the activations) split
+// into TF32 hi / lo in registers and B (the weights) read from shared memory
+// through descriptors, already split on the host into hi / lo and laid out
+// K-major (`split_weights`, once per weight version).
+//
+// A block owns a 256-pixel (M) x 80-channel (N) tile, 16x16 or 8x32,
+// whichever pads the image less (`wg::Tile`): two warpgroups of 8 rows x 16
+// columns, each two m64 tiles (a warp: one output row of 16 pixels in
+// each). A thread holds 2 x 40 running sums and 2 x 40 partial
+// sums and three sets of A fragments (228-249 registers), so one block an
+// SM. A stage of the ring is a chunk's 9 taps of hi / lo slabs (46,080 B,
+// contiguous in the split weights: one `cp.async.bulk` by one thread,
+// completed on the stage's mbarrier) and its halo at the 48-byte pixel
+// stride ((16+2)x(16+2) or (8+2)x(32+2) pixels, 16,320 B at most, `cp.async`
+// by every thread); three stages, 187,224 B with the barriers. Measured on
+// the H100 (PERF.md §6), with parts knocked out: the weights' copies cost
+// ~9%, the halo's ~10%; the per-tap A fragments, the fold and the barrier
+// nothing visible; a persistent grid was slower. The rest is not pinned
+// down; the card, at its 700 W limit, runs 1.75-1.9 GHz under this load.
+namespace wg {
+constexpr int kTN = 80;                              // output channels a block
+constexpr int kGroups = 2;                           // warpgroups, 8 rows each
+constexpr int kThreads = 128 * kGroups;
+constexpr int kMT = 2;                               // m64 tiles a warpgroup
+constexpr int kAcc = kTN / 2;                        // accumulators a thread an m64 tile
+constexpr int kPS = 12;                              // staged pixel stride in floats (48 bytes)
+constexpr int kHaloBytes = 10 * 34 * kPS * 4;        // 16,320: the larger halo, (8+2)x(32+2)
+constexpr int kSlab = kTN * 8;                       // floats of one tap's hi or lo slab
+constexpr int kSlabBytes = kSlab * 4;                // 2,560
+constexpr int kChunkWBytes = 9 * 2 * kSlabBytes;     // 46,080
+constexpr int kStageBytes = kChunkWBytes + kHaloBytes;  // 62,400
+constexpr int kStages = 3;
+constexpr int kRingBytes = kStages * kStageBytes;    // 187,200
+constexpr int kSmemBytes = kRingBytes + 8 * kStages; // + a full barrier a stage
+
+// The output tile, 256 pixels: TW = 16, 16x16, the warpgroups one above
+// the other; TW = 32, 8x32, side by side. Its halo, (TH+2)x(TW+2).
+template <int TW>
+struct Tile {
+  static constexpr int TH = 256 / TW, InH = TH + 2, InW = TW + 2;
+  // the warpgroup's first output row and column in the tile
+  static __device__ __forceinline__ int row(int wg) { return TW == 16 ? 8 * wg : 0; }
+  static __device__ __forceinline__ int col(int wg) { return TW == 16 ? 0 : 16 * wg; }
+};
+}  // namespace wg
+
+struct WgArgs {
+  const float* in;     // [B,H,W,Cin], Cin % 8 == 0, 16-byte aligned
+  const float* w;      // split_weights(W): [ceil(Co/80)][Cin/8][9][2][80*8]
+  const float* bias;   // [Co]
+  const float* res;    // [B,H,W,Cres], any alignment
+  const float* wres;   // split_weights(Wres): [ceil(Co/80)][ceil(Cres/8)][1][2][80*8] (kProjRes)
+  const float* bres;   // [Co]  (kProjRes)
+  float* out;          // [B,H,W,Co], Co % 8 == 0, 8-byte aligned
+  int Cin, Cres, H, W, Co, tiles_w;
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier `bar` expects `bytes` more, then a bulk copy of `bytes` from
+// global to shared memory completes them on it (one thread issues both)
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\nbra.uni WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// B's descriptor: a slab of 8-row x 16-byte core matrices, K-major without
+// swizzle; the two k4 halves 128 bytes apart (leading), the n8 groups 256
+// bytes apart (stride). Layout bits 62-63 zero: no swizzle.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the accumulators in place around wgmma: the compiler may not move
+// a use of them across this point (a wait, or the first product).
+__device__ __forceinline__ void fence_acc(float (&d)[wg::kMT][wg::kAcc]) {
+#pragma unroll
+  for (int mt = 0; mt < wg::kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < wg::kAcc; ++i) asm volatile("" : "+f"(d[mt][i])::"memory");
+}
+
+// d (+)= A (64x8 TF32, registers) x B (8x80 TF32, shared memory); SCALE_D 0
+// ignores d's old value.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[wg::kAcc], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
+}
+
+// Stage chunk kc into a ring slot: its weight slabs (contiguous, 16-byte
+// copies), and the halo tile of the 3x3 input (16-byte copies, zero-filled
+// outside the image) or (PROJ) the x tile at the halo's interior (4-byte
+// copies: any alignment, any C; zero past C).
+template <bool PROJ, int TW>
+__device__ __forceinline__ void wg_stage(const WgArgs& a, unsigned char* slot, uint64_t* bar,
+                                         int kc, int b, int y0, int x0, int ntile, int tid) {
+  constexpr int taps = PROJ ? 1 : 9;
+  float* s_in = reinterpret_cast<float*>(slot + wg::kChunkWBytes);
+  const int n_chunks = PROJ ? (a.Cres + 7) / 8 : a.Cin / 8;
+  const float* wsrc =
+      (PROJ ? a.wres : a.w) + ((size_t)ntile * n_chunks + kc) * taps * 2 * wg::kSlab;
+  if (tid == 0) bulk_load(slot, wsrc, taps * 2 * wg::kSlabBytes, bar);
+  if constexpr (!PROJ) {
+    const float* src_b = a.in + (size_t)b * a.H * a.W * a.Cin + kc * 8;
+    using S = wg::Tile<TW>;
+    for (int e = tid; e < S::InH * S::InW * 2; e += wg::kThreads) {
+      const int p = e >> 1, part = e & 1;
+      const int py = p / S::InW, px = p - py * S::InW;
+      const int gy = y0 - 1 + py, gx = x0 - 1 + px;
+      const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+      const float* g = ok ? src_b + ((size_t)gy * a.W + gx) * a.Cin + part * 4 : a.in;
+      cp_async16(s_in + p * wg::kPS + part * 4, g, ok);
+    }
+  } else {
+    const float* src_b = a.res + (size_t)b * a.H * a.W * a.Cres;
+    for (int e = tid; e < 256 * 8; e += wg::kThreads) {
+      const int p = e >> 3, ci = e & 7;
+      const int py = p / TW, px = p - py * TW;
+      const int gy = y0 + py, gx = x0 + px, k = kc * 8 + ci;
+      const bool ok = gy < a.H && gx < a.W && k < a.Cres;
+      const float* g = ok ? src_b + ((size_t)gy * a.W + gx) * a.Cres + k : a.res;
+      cp_async4(s_in + ((py + 1) * (TW + 2) + px + 1) * wg::kPS + ci, g, ok);
+    }
+  }
+}
+
+// A's fragment of one m64 tile at tap (dy, dx), split: the warp's output
+// row from column col, pixels g and g + 8, channels q and q + 4 (the
+// m16n8k8 layout).
+template <int TW>
+__device__ __forceinline__ void wg_load_a(const float* s_in, int row, int col, int dy, int dx,
+                                          int lane, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s_in + ((row + dy) * (TW + 2) + col + dx + g) * wg::kPS + q;
+  split_tf32(p[0], hi[0], lo[0]);                       // pixel g,     k q
+  split_tf32(p[8 * wg::kPS], hi[1], lo[1]);             // pixel g + 8, k q
+  split_tf32(p[4], hi[2], lo[2]);                       // pixel g,     k q + 4
+  split_tf32(p[8 * wg::kPS + 4], hi[3], lo[3]);         // pixel g + 8, k q + 4
+}
+
+// The products of one staged chunk (NTAPS = 9, or 1 for the projection at
+// the halo's interior) into partial sums that start at zero, then folded
+// into the running sums with fp32 adds, as mma_chunk does. A tap's A is
+// loaded and split while the two taps before it multiply (three register
+// sets; wait_group 2 frees the oldest).
+template <int NTAPS, int TW>
+__device__ __forceinline__ void wg_chunk(const unsigned char* slot, float (&acc)[wg::kMT][wg::kAcc],
+                                         float (&part)[wg::kMT][wg::kAcc], int row0, int col0,
+                                         int lane) {
+  const float* s_in = reinterpret_cast<const float*>(slot + wg::kChunkWBytes);
+  const uint32_t w0 = smem_u32(slot);
+  uint32_t ahi[3][wg::kMT][4], alo[3][wg::kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < wg::kMT; ++mt)
+    wg_load_a<TW>(s_in, row0 + 4 * mt, col0, NTAPS == 1 ? 1 : 0, NTAPS == 1 ? 1 : 0, lane,
+                  ahi[0][mt], alo[0][mt]);
+  fence_acc(part);
+#pragma unroll
+  for (int t = 0; t < NTAPS; ++t) {
+    const int cur = t % 3, next = (t + 1) % 3;
+    const uint64_t bhi = wg_desc(w0 + (2 * t) * wg::kSlabBytes);
+    const uint64_t blo = wg_desc(w0 + (2 * t + 1) * wg::kSlabBytes);
+    wgmma_fence();
+    // small terms first
+#pragma unroll
+    for (int mt = 0; mt < wg::kMT; ++mt) {
+      if (t == 0)
+        wgmma_tf32<0>(part[mt], alo[cur][mt], bhi);
+      else
+        wgmma_tf32<1>(part[mt], alo[cur][mt], bhi);
+    }
+#pragma unroll
+    for (int mt = 0; mt < wg::kMT; ++mt) wgmma_tf32<1>(part[mt], ahi[cur][mt], blo);
+#pragma unroll
+    for (int mt = 0; mt < wg::kMT; ++mt) wgmma_tf32<1>(part[mt], ahi[cur][mt], bhi);
+    wgmma_commit();
+    if (t + 1 < NTAPS) {
+      wgmma_wait<2>();  // tap t - 2's products are done with register set `next`
+      const int dy = (t + 1) / 3, dx = (t + 1) % 3;
+#pragma unroll
+      for (int mt = 0; mt < wg::kMT; ++mt)
+        wg_load_a<TW>(s_in, row0 + 4 * mt, col0, dy, dx, lane, ahi[next][mt], alo[next][mt]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(part);
+#pragma unroll
+  for (int mt = 0; mt < wg::kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < wg::kAcc; ++i) acc[mt][i] += part[mt][i];
+}
+
+// out = epilogue(conv3x3_same(in, W) + bias), fp32 through wgmma; for
+// kProjRes the 1x1 projection of `res` runs as extra K chunks.
+template <int EPI, int TW>
+__global__ void __launch_bounds__(wg::kThreads, 1) conv3x3_tc_kernel_sm90(const WgArgs a) {
+  using S = wg::Tile<TW>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int y0 = (blockIdx.x / a.tiles_w) * S::TH;
+  const int x0 = (blockIdx.x % a.tiles_w) * TW;
+  const int ntile = blockIdx.y, n0 = ntile * wg::kTN;
+  const int b = blockIdx.z;
+  // the warp's output row in the tile for m64 tile 0 (tile 1: 4 rows down),
+  // and its warpgroup's first column
+  const int row0 = S::row(tid >> 7) + ((tid >> 5) & 3), col0 = S::col(tid >> 7);
+  const int n_main = a.Cin / 8;
+  const int n_chunks = n_main + (EPI == kProjRes ? (a.Cres + 7) / 8 : 0);
+
+  float acc[wg::kMT][wg::kAcc], part[wg::kMT][wg::kAcc];
+#pragma unroll
+  for (int mt = 0; mt < wg::kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < wg::kAcc; ++i) acc[mt][i] = part[mt][i] = 0.f;
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + wg::kRingBytes);
+  if (tid == 0) {
+    for (int s = 0; s < wg::kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(full + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const auto stage = [&](int chunk) {
+    const int s = chunk % wg::kStages;
+    unsigned char* slot = smem + s * wg::kStageBytes;
+    if (EPI != kProjRes || chunk < n_main)
+      wg_stage<false, TW>(a, slot, full + s, chunk, b, y0, x0, ntile, tid);
+    else
+      wg_stage<true, TW>(a, slot, full + s, chunk - n_main, b, y0, x0, ntile, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < wg::kStages - 1; ++s) {
+    if (s < n_chunks) stage(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait<wg::kStages - 2>();  // this thread's copies of chunk i's tile have landed
+    mbar_wait(full + i % wg::kStages, (i / wg::kStages) & 1);  // and its weights
+    // everyone's have; slot (i - 1) % wg::kStages is free: every warpgroup
+    // waited on its products
+    __syncthreads();
+    if (i + wg::kStages - 1 < n_chunks) stage(i + wg::kStages - 1);
+    cp_async_commit();
+    const unsigned char* slot = smem + (i % wg::kStages) * wg::kStageBytes;
+    if (EPI != kProjRes || i < n_main)
+      wg_chunk<9, TW>(slot, acc, part, row0, col0, lane);
+    else
+      wg_chunk<1, TW>(slot, acc, part, row0, col0, lane);
+  }
+  cp_async_wait<0>();
+
+  // accumulator 4j + 2h + e of an m64 tile: pixel g + 8h of the warp's row,
+  // channel 8j + 2q + e; Co % 8 == 0, so a pair is in or out together
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < wg::kMT; ++mt) {
+    const int gy = y0 + row0 + 4 * mt;
+    if (gy >= a.H) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gx = x0 + col0 + g + 8 * h;
+      if (gx >= a.W) continue;
+      const size_t pix = ((size_t)b * a.H + gy) * a.W + gx;
+#pragma unroll
+      for (int j = 0; j < wg::kTN / 8; ++j) {
+        const int co = n0 + 8 * j + 2 * q;
+        if (co >= a.Co) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = acc[mt][4 * j + 2 * h + e] + a.bias[co + e];
+          if constexpr (EPI == kGelu) v[e] = gelu_exact(v[e]);
+          if constexpr (EPI == kIdentityRes) v[e] += a.res[pix * a.Cres + co + e];
+          if constexpr (EPI == kProjRes) v[e] += a.bres[co + e];
+        }
+        *reinterpret_cast<float2*>(a.out + pix * a.Co + co) = make_float2(v[0], v[1]);
+      }
+    }
+  }
+}
+
+namespace {
+std::atomic<unsigned long long> smem_allowed_sm90[3][2];
+}  // namespace
+
+template <int EPI, int TW>
+cudaError_t launch_sm90(WgArgs a, int B, int device, cudaStream_t stream) {
+  std::atomic<unsigned long long>& allowed = smem_allowed_sm90[EPI][TW == 32];
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (!(allowed.load() & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(conv3x3_tc_kernel_sm90<EPI, TW>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 wg::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  a.tiles_w = (a.W + TW - 1) / TW;
+  const int tiles_h = (a.H + wg::Tile<TW>::TH - 1) / wg::Tile<TW>::TH;
+  const dim3 grid(a.tiles_w * tiles_h, (a.Co + wg::kTN - 1) / wg::kTN, B);
+  conv3x3_tc_kernel_sm90<EPI, TW><<<grid, wg::kThreads, wg::kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The tile that pads the image least, 16x16 on a tie: 8x32 at the walk's
+// 67x90 and 133x177, where 16 rows pad H by 19% and 8%.
+template <int EPI>
+cudaError_t launch_conv3x3_sm90(WgArgs a, int B, int device, cudaStream_t stream) {
+  const auto misaligned = [](const void* p, int bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) != 0;
+  };
+  if (a.Cin % 8 != 0 || a.Co % 8 != 0 || misaligned(a.in, 16) || misaligned(a.w, 16) ||
+      misaligned(a.out, 8) || (EPI == kProjRes && misaligned(a.wres, 16)))
+    return cudaErrorInvalidValue;
+  const auto padded = [&](int th, int tw) {
+    return (long)((a.H + th - 1) / th * th) * ((a.W + tw - 1) / tw * tw);
+  };
+  if (padded(8, 32) < padded(16, 16)) return launch_sm90<EPI, 32>(a, B, device, stream);
+  return launch_sm90<EPI, 16>(a, B, device, stream);
+}
+
+int conv_stage1_sm90(const void* h1_, const void* w1_, const void* b1_, void* g_, int B, int H,
+                     int W, int C, int Co, int device, void* stream_) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  WgArgs a{};
+  a.H = H;
+  a.W = W;
+  a.Co = Co;
+  a.in = static_cast<const float*>(h1_);
+  a.Cin = C;
+  a.w = static_cast<const float*>(w1_);
+  a.bias = static_cast<const float*>(b1_);
+  a.out = static_cast<float*>(g_);
+  return (int)launch_conv3x3_sm90<kGelu>(a, B, device, static_cast<cudaStream_t>(stream_));
+}
+
+int conv_stage2_sm90(const void* g_, const void* w2_, const void* b2_, const void* x_,
+                     const void* wres_, const void* bres_, void* out_, int B, int H, int W, int C,
+                     int Co, int device, void* stream_) {
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  WgArgs a{};
+  a.H = H;
+  a.W = W;
+  a.Co = Co;
+  a.in = static_cast<const float*>(g_);
+  a.Cin = Co;
+  a.w = static_cast<const float*>(w2_);
+  a.bias = static_cast<const float*>(b2_);
+  a.res = static_cast<const float*>(x_);
+  a.Cres = C;
+  a.out = static_cast<float*>(out_);
+  if (wres_ == nullptr) return (int)launch_conv3x3_sm90<kIdentityRes>(a, B, device, stream);
+  a.wres = static_cast<const float*>(wres_);
+  a.bres = static_cast<const float*>(bres_);
+  return (int)launch_conv3x3_sm90<kProjRes>(a, B, device, stream);
+}
+
 }  // namespace sinddm
 
 extern "C" {
@@ -507,6 +933,16 @@ int sinddm_conv_stage2_f32(SINDDM_STAGE2_ARGS) {
 int sinddm_conv_stage2_bf16(SINDDM_STAGE2_ARGS) {
   return sinddm::conv_stage2<__nv_bfloat16>(g, w2, b2, x, wres, bres, out, B, H, W, C, Co, device,
                                             stream);
+}
+
+// The fp32 stages on wgmma: w1 / w2 / wres are split_weights' layout
+// (ops/conv_block.py), C % 8 == 0 for stage 1 and Co % 8 == 0.
+int sinddm_conv_stage1_f32_wgmma(SINDDM_STAGE1_ARGS) {
+  return sinddm::conv_stage1_sm90(h1, w1, b1, g, B, H, W, C, Co, device, stream);
+}
+
+int sinddm_conv_stage2_f32_wgmma(SINDDM_STAGE2_ARGS) {
+  return sinddm::conv_stage2_sm90(g, w2, b2, x, wres, bres, out, B, H, W, C, Co, device, stream);
 }
 
 const char* sinddm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

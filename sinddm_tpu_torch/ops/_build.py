@@ -40,6 +40,8 @@ SIGNATURES = {
         "sinddm_conv_stage1_bf16": [_P] * 4 + [_I] * 6 + [_P],
         "sinddm_conv_stage2_f32": [_P] * 7 + [_I] * 6 + [_P],
         "sinddm_conv_stage2_bf16": [_P] * 7 + [_I] * 6 + [_P],
+        "sinddm_conv_stage1_f32_wgmma": [_P] * 4 + [_I] * 6 + [_P],
+        "sinddm_conv_stage2_f32_wgmma": [_P] * 7 + [_I] * 6 + [_P],
     },
     "dw_conv": {
         "sinddm_dw_conv5x5_f32": [_P] * 5 + [_I] * 5 + [_P],

@@ -13,11 +13,13 @@ are multiplied by it before they enter a convolution, so a padded canvas
 computes on its valid region what the valid crop alone would. On a CUDA tensor,
 :func:`conv_block` runs three launches: ``h1`` is the depthwise kernel of
 :mod:`sinddm_tpu_torch.ops.dw_conv` (counted there), and the two 3x3
-stages are ``csrc/conv_block.cu`` on the tensor cores, 3xTF32 in float32
-and bf16 ``mma.sync`` in bfloat16 (counted here; see the note in that
-file). On a CPU tensor it runs :func:`conv_block_reference`. Layout is
-NHWC for activations and HWIO for weights, the JAX package's, so the
-kernels read the weights as they are.
+stages are ``csrc/conv_block.cu`` on the tensor cores (counted here; see
+the note in that file): 3xTF32 in float32, through warpgroup ``wgmma``
+where :func:`wgmma_route` takes the stage's channel counts, with the
+weights split once into TF32 hi / lo (:func:`split_weights`), else
+``mma.sync``; bf16 ``mma.sync`` in bfloat16. On a CPU tensor it runs
+:func:`conv_block_reference`. Layout is NHWC for activations and HWIO for
+weights, the JAX package's.
 
 :func:`conv_block_train` is the block as the JAX package trains it (flax
 ``nn.Conv`` under autograd): the same function in PyTorch's convolutions,
@@ -28,7 +30,8 @@ JAX package's kernel has none either (``ops/pallas_conv.py`` defines no
 
 from __future__ import annotations
 
-from typing import Optional
+import weakref
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +41,8 @@ from sinddm_tpu_torch.ops.dw_conv import KERNEL_DTYPES, depthwise_conv5x5
 
 LAUNCHES_PER_BLOCK = 2  # conv1+bias+GELU, conv2+bias+residual (dw_conv adds one more)
 launches = 0  # kernel launches made by conv_block; reset by the caller
+wgmma_launches = 0  # of those, the fp32 stages on wgmma (conv3x3_tc_kernel_sm90)
+WGMMA_TILE_N = 80  # output channels a block of the wgmma kernel (csrc/conv_block.cu wg::kTN)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -96,6 +101,66 @@ def conv_block_reference(
     return out.to(dt).contiguous()
 
 
+def wgmma_route(c_in: int, co: int, dtype: torch.dtype) -> bool:
+    """Whether a 3x3 stage with ``c_in`` input channels and ``co`` outputs
+    runs on the wgmma kernel: float32, both counts multiples of 8 (the K
+    chunk; 16-byte copies of the stage's input, pairs of outputs). In the
+    walk, every stage but l1's conv1 (C = 3); bf16 and every other shape
+    take the ``mma.sync`` kernel."""
+    return dtype == torch.float32 and c_in % 8 == 0 and co % 8 == 0
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` and the kernels' ``tf32_rna``
+    round, bit for bit: to the nearest value with 10 stored mantissa bits,
+    ties away from zero. Adding half a TF32 unit to the sign-magnitude
+    pattern and clearing the 13 low bits does both."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """The wgmma kernel's B operand for weights ``w`` [taps, C, Co]
+    (the 3x3 stage's [9, C, Co], the projection's [1, C, Co]), float32:
+    hi = rna(w), lo = rna(w - hi), laid out as
+    [ceil(Co / 80), ceil(C / 8), taps, 2 (hi, lo), 80 / 8, 2, 8, 4]: per
+    tile of 80 output channels, chunk of 8 input channels, tap and half,
+    the 8 x 16-byte core matrices of a K-major slab (n8 group, k4 half,
+    the group's 8 output channels, 4 input channels), zero past C and Co."""
+    taps, c, co = w.shape
+    kc, nt = -(-c // 8), -(-co // WGMMA_TILE_N)
+    wp = w.new_zeros((taps, 8 * kc, WGMMA_TILE_N * nt), dtype=torch.float32)
+    wp[:, :c, :co] = w
+    hi = tf32_rna(wp)
+    lo = tf32_rna(wp - hi)
+    s = torch.stack((hi, lo)).view(2, taps, kc, 2, 4, nt, WGMMA_TILE_N // 8, 8)
+    return s.permute(5, 2, 1, 0, 6, 3, 7, 4).contiguous()  # (nt, kc, taps, h, j, k4, n8, k)
+
+
+# split_weights' cache: id of the tensor, or of a view's base with the view's
+# geometry -> (a weak reference to the base, its version when split, the split)
+_splits: Dict[tuple, tuple] = {}
+
+
+def split_weights(w: torch.Tensor) -> torch.Tensor:
+    """:func:`split_weights_kmajor` of ``w`` ([3, 3, C, Co] or [C, Co]),
+    built once per weight version: cached on the tensor (a view by its
+    base) and its ``_version``, so an in-place update, a new load or a new
+    tensor splits again, and a walk's steps after the first add no launch."""
+    base = w._base
+    if base is None:
+        base, key = w, id(w)
+    else:
+        key = (id(base), w.shape, w.stride(), w.storage_offset())
+    hit = _splits.get(key)
+    if hit is not None and hit[0]() is base and hit[1] == base._version:
+        return hit[2]
+    version = base._version
+    split = split_weights_kmajor(w.reshape(-1, *w.shape[-2:]).float())
+    _splits[key] = (weakref.ref(base, lambda _, k=key: _splits.pop(k, None)), version, split)
+    return split
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -121,7 +186,7 @@ def conv_block(
     kernel casts them. With ``mask``, x is multiplied by it on entry and h1
     and g between the launches.
     """
-    global launches
+    global launches, wgmma_launches
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"conv_block runs on cuda or cpu tensors, got {x.device}")
     if x.dtype not in KERNEL_DTYPES:
@@ -165,12 +230,20 @@ def conv_block(
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if mask is not None:
         h1.mul_(mask)
-    err = getattr(lib, f"sinddm_conv_stage1_{dname}")(_ptr(h1), _ptr(w1), _ptr(b1), _ptr(g), b, h, w, c, co, dev,
-                                                    stream)
+    entry = f"sinddm_conv_stage1_{dname}"
+    if wgmma_route(c, co, x.dtype):
+        entry, w1 = entry + "_wgmma", split_weights(w1)
+        wgmma_launches += 1
+    err = getattr(lib, entry)(_ptr(h1), _ptr(w1), _ptr(b1), _ptr(g), b, h, w, c, co, dev, stream)
     _build.check(lib, err, "conv_block stage 1")
     if mask is not None:
         g.mul_(mask)
-    err = getattr(lib, f"sinddm_conv_stage2_{dname}")(
+    entry = f"sinddm_conv_stage2_{dname}"
+    if wgmma_route(co, co, x.dtype):
+        entry, w2 = entry + "_wgmma", split_weights(w2)
+        wres = None if wres is None else split_weights(wres)
+        wgmma_launches += 1
+    err = getattr(lib, entry)(
         _ptr(g), _ptr(w2), _ptr(b2), _ptr(x), _ptr(wres), _ptr(bres), _ptr(out), b, h, w, c, co, dev, stream)
     _build.check(lib, err, "conv_block stage 2")
     launches += LAUNCHES_PER_BLOCK

@@ -4,7 +4,7 @@
 The port's wrappers take their plain-PyTorch versions on CPU tensors; the
 CUDA kernels themselves are held against those plain versions on the card
 by ``chip_smoke.py``. The fp32 kernel's 3xTF32 arithmetic is emulated here
-(``_tf32_rna``, ``_stage_3xtf32``) to show on the CPU that it keeps the
+(``conv_block.tf32_rna``, ``_stage_3xtf32``) to show on the CPU that it keeps the
 fp32 bound and that single-pass TF32 does not.
 """
 
@@ -203,14 +203,6 @@ def test_wrappers_check_shapes_and_types():
         dw.depthwise_conv5x5(args[0].double(), args[2].double(), args[3].double())
 
 
-def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to the nearest value with
-    10 stored mantissa bits, ties away from zero. Adding half a TF32 unit to
-    the sign-magnitude pattern and clearing the 13 low bits does both."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 def _stage_3xtf32(x, w, split=True):
     """One 3x3 'SAME' product as the kernel forms it in fp32: K in chunks of
     8 channels, the 9 taps of a chunk in turn, each operand split as
@@ -226,10 +218,10 @@ def _stage_3xtf32(x, w, split=True):
             dy, dx = divmod(t, 3)
             a = xp[:, dy : dy + h, dx : dx + wd, k0 : k0 + 8].reshape(-1, min(8, c - k0))
             bw = w[dy, dx, k0 : k0 + 8]
-            a_hi, b_hi = _tf32_rna(a), _tf32_rna(bw)
+            a_hi, b_hi = cb.tf32_rna(a), cb.tf32_rna(bw)
             if split:
-                part += _tf32_rna(a - a_hi) @ b_hi
-                part += a_hi @ _tf32_rna(bw - b_hi)
+                part += cb.tf32_rna(a - a_hi) @ b_hi
+                part += a_hi @ cb.tf32_rna(bw - b_hi)
             part += a_hi @ b_hi
         acc += part
     return acc.reshape(b, h, wd, -1)
@@ -240,7 +232,7 @@ def test_tf32_rounding_is_nearest_ties_away():
     x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), one + 2.0**-11, 1.0 + 2.0**-12,
                       1.0 + 2.0**-11 - 2.0**-23, 3.0, 0.0], dtype=torch.float32)
     want = [one, -one, 1.0 + 2.0**-9, 1.0, 1.0, 3.0, 0.0]  # ties go away from zero
-    assert _tf32_rna(x).tolist() == want
+    assert cb.tf32_rna(x).tolist() == want
 
 
 def test_3xtf32_stage_keeps_the_fp32_bound_where_tf32_does_not(one_torch_thread):  # noqa: F811
@@ -269,3 +261,66 @@ def test_3xtf32_stage_keeps_the_fp32_bound_where_tf32_does_not(one_torch_thread)
           f"single-pass TF32 {ratio[False]:.3e}")
     assert ratio[True] <= 0.1, ratio
     assert ratio[False] > 1.0, ratio
+
+
+def _kernel_tf32_bits(x: np.ndarray) -> np.ndarray:
+    """The kernels' ``tf32_rna`` on the bit pattern, in uint32 arithmetic."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("taps,c,co", [(9, 160, 160), (9, 12, 24), (9, 90, 100), (1, 3, 80), (9, 8, 8)])
+def test_split_weights_round_like_the_kernel_and_lie_k_major(taps, c, co):
+    """hi = rna(w) bit for bit as the kernel rounds, lo = rna(w - hi),
+    hi + lo within TF32's residual of w, and the layout K-major:
+    [Co tile of 80][chunk of 8 channels][tap][hi, lo][n8 group][k4 half][8 outputs][4 inputs],
+    zero past C and Co."""
+    rng = np.random.default_rng(taps * 1000 + c + co)
+    w = (rng.standard_normal((taps, c, co)) * 0.05).astype(np.float32)
+    w[0, 0, 0] = 1.0 + 2.0**-11  # a tie: away from zero
+    split = cb.split_weights_kmajor(torch.from_numpy(w))
+    nt, kc = -(-co // 80), -(-c // 8)
+    assert tuple(split.shape) == (nt, kc, taps, 2, 10, 2, 8, 4) and split.dtype == torch.float32
+    # back to [taps, K, N] from (nt, kc, tap, h, j, k4, n8, k)
+    flat = split.permute(3, 2, 1, 5, 7, 0, 4, 6).reshape(2, taps, 8 * kc, 80 * nt).numpy()
+    hi, lo = flat[0, :, :c, :co], flat[1, :, :c, :co]
+    assert np.array_equal(hi.view(np.uint32), _kernel_tf32_bits(w))
+    assert np.array_equal(lo.view(np.uint32), _kernel_tf32_bits(w - hi))
+    assert hi[0, 0, 0] == 1.0 + 2.0**-10
+    assert np.all(np.abs(w - (hi + lo)) <= 2.0**-21 * np.abs(w))
+    assert not flat[:, :, c:, :].any() and not flat[:, :, :, co:].any()
+    # one slab: output channel n, input channel k of (tile 0, chunk 0, tap 0, hi)
+    n, k = min(co, 80) - 1, min(c, 8) - 1
+    assert split[0, 0, 0, 0, n // 8, k // 4, n % 8, k % 4] == hi[0, k, n]
+
+
+def test_split_weights_are_cached_per_weight_version():
+    """Built once per weight version: the same tensor and a fresh view of it
+    (the projection's reshape) hit the cache; an in-place update of the base
+    (``_version``) and a new tensor split again."""
+    rng = np.random.default_rng(3)
+    w1 = torch.from_numpy(rng.standard_normal((3, 3, 16, 24)).astype(np.float32))
+    wres = torch.from_numpy(rng.standard_normal((1, 1, 16, 24)).astype(np.float32))
+    first = cb.split_weights(w1)
+    assert cb.split_weights(w1) is first
+    res_first = cb.split_weights(wres.reshape(16, 24))
+    assert cb.split_weights(wres.reshape(16, 24)) is res_first
+    w1.add_(1.0)
+    again = cb.split_weights(w1)
+    assert again is not first and not torch.equal(again, first)
+    assert torch.equal(again, cb.split_weights_kmajor(w1.reshape(9, 16, 24)))
+    wres.mul_(2.0)
+    assert cb.split_weights(wres.reshape(16, 24)) is not res_first
+    fresh = w1.clone()
+    assert cb.split_weights(fresh) is not again and torch.equal(cb.split_weights(fresh), again)
+
+
+@pytest.mark.parametrize("c,co,want", [
+    # the walk's stages, (3x3 input channels, Co): l1's conv1 alone stays on mma.sync
+    (3, 80, False), (80, 80, True), (80, 160, True), (160, 160, True), (160, 80, True),
+    # the test shapes
+    (12, 24, False), (90, 90, False), (16, 100, False), (16, 8, True), (8, 24, True), (12, 8, False),
+    (100, 100, False)])
+def test_wgmma_route_takes_channel_counts_in_eights(c, co, want):
+    assert cb.wgmma_route(c, co, torch.float32) is want
+    assert cb.wgmma_route(c, co, torch.bfloat16) is False

@@ -150,6 +150,55 @@ def test_conv_block_copy_and_plain_staging_agree(gen, shifted, dtype):
     torch.testing.assert_close(cb.conv_block(*args), cb.conv_block(*aligned), atol=0, rtol=0)
 
 
+# the walk's four blocks at rows of its coarsest (48x64) and finest (186x248)
+# scale, ragged in H and W, B = 1
+WGMMA_CASES = [(b, h, w, c, co) for (c, co) in ((3, 80), (80, 160), (160, 160), (160, 80))
+               for (b, h, w) in ((2, 5, 64), (1, 9, 248), (1, 19, 21), (1, 3, 7))]
+
+
+@pytest.mark.parametrize("b,h,w,c,co", WGMMA_CASES)
+def test_wgmma_stages_match_float64_and_mma_sync(gen, monkeypatch, b, h, w, c, co):
+    """The fp32 stages on wgmma against the block in float64, and against the
+    same stages through the mma.sync kernel on the same inputs: within the
+    fp32 bound, and no worse than 1.5x the mma.sync kernel's largest error.
+    Stages whose channel counts the route rule takes run on wgmma (l1's
+    conv1, C = 3, stays on mma.sync)."""
+    args = _block(gen, b, h, w, c, co, torch.float32)
+    ref = cb.conv_block_train(*[None if t is None else t.double() for t in args])
+    cb.launches = cb.wgmma_launches = 0
+    new = cb.conv_block(*args)
+    assert (cb.launches, cb.wgmma_launches) == (2, 1 + cb.wgmma_route(c, co, torch.float32))
+    monkeypatch.setattr(cb, "wgmma_route", lambda *shape: False)
+    old = cb.conv_block(*args)
+    assert (cb.launches, cb.wgmma_launches) == (4, 1 + (c % 8 == 0))
+    torch.cuda.synchronize()
+    err_new = (new.double() - ref).abs().max().item()
+    err_old = (old.double() - ref).abs().max().item()
+    torch.testing.assert_close(new.double(), ref, atol=2e-4, rtol=2e-4)
+    assert err_new <= 1.5 * err_old + 1e-12, (err_new, err_old)
+
+
+def test_walk_runs_seven_of_eight_stages_on_wgmma(gen):
+    """A dim-16 walk (blocks 3 -> 8 -> 16 -> 16 -> 8): every stage but l1's
+    conv1 runs on wgmma, and kernel 1's launch count is what it was."""
+    from sinddm_tpu_torch.apps.sampling import sample_scales
+
+    pyr, sched, paths = _dim16_walk(gen)
+    calls = []
+
+    def model_fn(x, t, s):
+        calls.append(s)
+        return paths["kernel"](x, t, s)
+
+    cb.launches = cb.wgmma_launches = 0
+    outs = sample_scales(model_fn, sched, pyr.sizes_hw, scale_factor=pyr.scale_factor, n_scales=3, batch_size=2,
+                         generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[-1]).all()) and len(calls) > 3
+    assert cb.launches == len(calls) * 4 * cb.LAUNCHES_PER_BLOCK
+    assert cb.wgmma_launches * 8 == cb.launches * 7
+
+
 # and shapes that cross the rolling-row kernel's edges: W and H of 1 and
 # under the window, strips past W (32 columns), a partial last channel slab
 # (C = 80: slabs of 32), several segments (H = 37, 130); C = 7, and C = 4 in

@@ -169,8 +169,8 @@ def test_a_walk_records_its_scales_steps_and_denoiser_calls(tiny):
     assert walk.attrs == {"batch": 2, "n_scales": 2} and walk.id == 0
     assert [r.attrs for r in scales] == [{"s": 0, "H": 12, "W": 16, "steps": T},
                                          {"s": 1, "H": 17, "W": 23, "steps": sched.num_timesteps_ideal[1]}]
-    assert all(r.parent == walk.id and set(r.counts_open) == {"conv_block.launches", "dw_conv.launches"}
-               for r in scales)
+    counters = {"conv_block.launches", "conv_block.wgmma_launches", "dw_conv.launches"}
+    assert all(r.parent == walk.id and set(r.counts_open) == counters for r in scales)
     assert len(steps) == len(calls) == n_steps
     assert [r.attrs["t"] for r in steps] == list(range(T - 1, -1, -1)) + \
         list(range(sched.num_timesteps_ideal[1] - 1, -1, -1))
@@ -240,10 +240,11 @@ def test_a_scale_span_reads_the_kernels_launch_counters(tiny, monkeypatch):
 
     model, sched = tiny
     monkeypatch.setattr(conv_block, "launches", 8)
+    monkeypatch.setattr(conv_block, "wgmma_launches", 7)
     monkeypatch.setattr(dw_conv, "launches", 4)
     with _session():
         _walk(model, sched)
-    want = {"conv_block.launches": 8, "dw_conv.launches": 4}
+    want = {"conv_block.launches": 8, "conv_block.wgmma_launches": 7, "dw_conv.launches": 4}
     assert [(r.counts_open, r.counts_close) for r in _by_name(spans(), "sinddm.scale")] == [(want, want)] * 2
 
 
